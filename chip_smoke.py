@@ -6,11 +6,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints one line; any failure raises and exits non-zero):
 
 0. environment: the card's name and power limit, torch and CUDA versions,
-   the build times of the four CUDA kernels (nvcc, sm_90a) and of the
+   the build times of the six CUDA kernels (nvcc, sm_90a) and of the
    native bitstream runtime (g++);
-1. kernel parity at the main path's shapes: K1-K3 bit for bit against
-   their plain PyTorch versions, K4 within a stated tolerance, each timed
-   (median of 20 runs, CUDA events) beside its plain version;
+1. kernel parity at their paths' shapes: K1-K3 and K5 bit for bit against
+   their plain PyTorch versions, K4 and K6 within a stated tolerance, each
+   timed (median of 20 runs, CUDA events) beside its plain version, its
+   bound on this card (bytes over the memory rate or operations over the
+   float32 rate, whichever is larger) and, where one exists, the PyTorch
+   call that computes the same function;
 2. the main path: Engine(device="cuda", rate_mode="reservoir") on four
    synthetic stereo files (three of 10 s, one of 60 s), serial encode ->
    decode and roundtrip_many, which must agree byte for byte and sample
@@ -19,7 +22,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
 3. cross-check against the JAX reference through the committed fixture
    tests/data/torch_port_fixture.npz (a stream and PCM the JAX package
    made on the CPU);
-4. throughput: encode + decode blocks/s, serial and roundtrip_many.
+4. throughput: encode + decode blocks/s, serial and roundtrip_many, and
+   decode alone on the host-parse and the device-parse route;
+5. device-parse decode: Engine(decode_parse="device") decodes phase 2's
+   streams to the host route's samples, the JAX fixture within 1 LSB, and
+   raises on a corrupted copy; K5 and K1 launched;
+6. the aidan peak modes: Engine(cfg=CodecConfig(peak_mode=m)) for "para"
+   and "weighted", encode -> decode of the 60 s file; streams parse back,
+   SNR above the floor, K6, K2 and K3 launched; for "weighted" a second
+   JAX fixture is decoded within 1 LSB and re-encoded at the same SNR.
 
 Then a JSON line with each kernel's launches, error and times, the
 nvidia-smi line, and last {"ok": true, "device": {...}}.  With no CUDA
@@ -40,6 +51,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = "cuda"   # phases 2-4 also run on "cpu" (tests/test_torch_chip_smoke.py)
 FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_fixture.npz")
+FIXTURE_WEIGHTED = os.path.join(ROOT, "tests", "data",
+                                "torch_port_fixture_weighted.npz")
 FS = 44100
 # The reference decoder's M/S aliasing (L' = M - S, R' = M; Q1) caps the
 # SNR of material whose channels differ: these files decode at 5.4 to 9.8 dB
@@ -48,12 +61,24 @@ FS = 44100
 SNR_FLOOR_DB = 3.0
 K4_RTOL = 1e-5               # intensity sums differ only in summation order
 K4_SPL_ATOL_DB = 1e-3
+K6_RTOL = 1e-5               # as K4: the terms are equal, the sum's order not
+K6_SPL_ATOL_DB = 1e-3
 REPLACES = {                 # the TPU kernel body each CUDA kernel replaces
     "extract_codes": ("extract_codes.cu", "pactpu/ops/pallas_ops.py:240"),
     "water_fill": ("water_fill.cu", "pactpu/ops/pallas_ops.py:339"),
     "pack_words": ("pack_words.cu", "pactpu/ops/pallas_ops.py:176"),
     "spread_maskers_up": ("spread_up.cu", "pactpu/ops/pallas_ops.py:85"),
+    "huffman_walk": ("huffman_walk.cu", "pactpu/ops/huffman_walk.py:230"),
+    "spread_maskers": ("spread.cu", "pactpu/ops/pallas_ops.py:50"),
 }
+# the path whose launches each kernel's "launches" reports
+PATH_OF = {"extract_codes": "main", "water_fill": "main",
+           "pack_words": "main", "spread_maskers_up": "main",
+           "huffman_walk": "device-parse", "spread_maskers": "aidan"}
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, and float32 operations/s outside
+# the tensor cores (also taken as the rate of the 32-bit integer operations)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 
 
 class SmokeError(RuntimeError):
@@ -153,9 +178,13 @@ def phase0(torch) -> str:
     return smi
 
 
-def phase1(torch, dev_tables, pcm: np.ndarray) -> dict:
-    """Each kernel against its plain version on the main path's shapes
-    (one 512-block chunk)."""
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
+    """Each kernel against its plain version on its path's shapes (one
+    512-block chunk; `stream` is the encode of `pcm`)."""
     from pactpu_torch import native
     from pactpu_torch.codec import engine as E
     from pactpu_torch.ops import kernels as K
@@ -166,9 +195,18 @@ def phase1(torch, dev_tables, pcm: np.ndarray) -> dict:
     rng = np.random.default_rng(1)
     res = {}
 
-    def record(name, err, fast, plain):
-        res[name] = dict(max_abs_err=err, ms=median_ms(torch, fast),
-                         plain_ms=median_ms(torch, plain))
+    def record(name, err, fast, plain, moved, ops, library=None,
+               plain_runs=20):
+        """moved: bytes of every input and output once; ops: operations
+        these inputs need; the bound is the larger of their times."""
+        t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS_PER_S * 1e3
+        res[name] = dict(
+            max_abs_err=err, ms=median_ms(torch, fast),
+            plain_ms=median_ms(torch, plain, plain_runs),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=median_ms(torch, library) if library else None)
 
     # K1: 1024 rows x 1024 lines at a 256-word bucket, realistic widths
     lay = dev_tables["lay"]
@@ -191,8 +229,10 @@ def phase1(torch, dev_tables, pcm: np.ndarray) -> dict:
     check(torch.equal(out, plain), "K1 differs from its plain version")
     check(np.array_equal(out.cpu().numpy(), mant), "K1 does not "
           "reproduce the repacked codes")
+    # per field: two shifts, a funnel shift, a compare, address arithmetic
     record("extract_codes", 0.0, lambda: K.extract_codes(words_t, off, wid),
-           lambda: K.extract_codes_plain(words_t, off, wid))
+           lambda: K.extract_codes_plain(words_t, off, wid),
+           nbytes(words_t, off, wid, out), 8 * out.numel())
 
     # K4 on the masker levels of one chunk (3072 rows)
     psy = dev_tables["psy"]
@@ -214,9 +254,13 @@ def phase1(torch, dev_tables, pcm: np.ndarray) -> dict:
     base = psy["quiet_i"][None] + torch.matmul(iprime, psy["nonup"])
     d_spl = (psycho.spl(base + out) - psycho.spl(base + plain)).abs().max()
     check(float(d_spl) <= K4_SPL_ATOL_DB, f"K4 threshold off by {d_spl} dB")
+    # operations: 6 per (row, peak masker, line on its upslope) triple
+    reach = (psy["zvec"][None, :] - psy["bin_bark"][:, None] > 0.5).sum(1)
+    triples = int(((iprime != 0).long() * reach[None, :]).sum())
     record("spread_maskers_up", float(err.max()),
            lambda: K.spread_maskers_up(*args),
-           lambda: K.spread_maskers_up_plain(*args))
+           lambda: K.spread_maskers_up_plain(*args),
+           nbytes(*args, out), 6 * triples)
 
     # K2: 512 rows of a chunk's real SMRs plus edge rows: zero budget,
     # budgets that drive bands to the 16-bit cap, ties in SMR
@@ -237,8 +281,13 @@ def phase1(torch, dev_tables, pcm: np.ndarray) -> dict:
           "K2 differs from its plain version")
     check(int(bits[32:48].max()) == 16, "K2 input never reaches the cap")
     check(int(bits[:16].abs().sum()) == 0, "K2 spent a zero budget")
+    # operations: a greedy step is an argmax and a max over the bands
+    # (2 x 25 compares and as many residuals); a row takes at least one
+    # step per granted bit plus one per band to retire it
+    steps = int(pbits.sum()) + pbits.shape[0] * pbits.shape[1]
     record("water_fill", 0.0, lambda: K.water_fill(total, 16, nl, smr, lrms),
-           lambda: K.water_fill_plain(total, 16, nl, smr, lrms))
+           lambda: K.water_fill_plain(total, 16, nl, smr, lrms),
+           nbytes(total, nl, smr, lrms, bits, left), 4 * 25 * steps)
 
     # K3: 1024 rows x 1148 items at n_words 256 and 968 (time at 256)
     items = 1148
@@ -254,17 +303,140 @@ def phase1(torch, dev_tables, pcm: np.ndarray) -> dict:
         out = K.pack_words(p0, p1, w0, n_words)
         check(torch.equal(out, K.pack_words_plain(p0, p1, w0, n_words)),
               f"K3 differs from its plain version at n_words {n_words}")
+    # the same function as two Tensor.scatter_add_ calls (indices made
+    # beforehand; out-of-range parts go to a spare column)
+    i0 = torch.where((w0 >= 0) & (w0 < 256), w0, 256).long()
+    i1 = torch.where((w0 + 1 >= 0) & (w0 + 1 < 256), w0 + 1, 256).long()
+    acc = torch.zeros((1024, 257), dtype=torch.int32, device=dev)
+
+    def scatter():
+        acc.zero_()
+        acc.scatter_add_(1, i0, p0)
+        acc.scatter_add_(1, i1, p1)
+
+    scatter()
+    check(torch.equal(acc[:, :256], out), "K3 differs from scatter_add_")
     record("pack_words", err3, lambda: K.pack_words(p0, p1, w0, 256),
-           lambda: K.pack_words_plain(p0, p1, w0, 256))
+           lambda: K.pack_words_plain(p0, p1, w0, 256),
+           nbytes(p0, p1, w0, out), 2 * p0.numel(), library=scatter)
+
+    # K5: the first 1,024 channel-block rows of the 60 s stream at their
+    # word bucket, plus 64 copies with one word XORed with random bits
+    from pactpu_torch.codec.header import read_header
+    from pactpu_torch.ops import huffman_decode as hd
+    from pactpu_torch.ops import huffman_walk as hw
+    cfg, _, hoff = read_header(stream)
+    rows_w, rows_n = hd.frame_rows(stream[hoff:])
+    bucket = next(w for w in E._PAYLOAD_WORD_BUCKETS if w >= rows_w.shape[1])
+    wk = np.zeros((1088, bucket), np.uint32)
+    wk[:1024, :rows_w.shape[1]] = rows_w[:1024]
+    wk[1024:] = wk[:64]
+    nk = np.concatenate([rows_n[:1024], rows_n[:64]])
+    for r in range(1024, 1088):
+        wk[r, rng.integers(0, max(1, nk[r] // 32))] ^= np.uint32(
+            rng.integers(1, 1 << 32))
+    lut = hw.device_walk_lut(None, dev)
+    wk_t = torch.from_numpy(wk.view(np.int32)).to(dev)
+    nk_t = torch.from_numpy(nk).to(dev)
+    walk_args = (wk_t, lut, cfg.band_layout.n_lines, cfg.n_scale_bits,
+                 cfg.n_mant_size_bits, cfg.n_table_id_bits)
+    rec = K.huffman_walk(*walk_args)
+    torch.cuda.synchronize()
+    rec_plain = K.huffman_walk_plain(*walk_args)
+    for name, a, b in zip(("code", "basf", "soff", "misc"), rec, rec_plain):
+        check(torch.equal(a, b), f"K5 {name} differs from its plain version")
+    parsed = hd.parse_post(rec, wk_t, nk_t, lay)
+    check(not bool(parsed["bad"][:1024].any()), "K5 flags a clean row")
+    check(bool(parsed["bad"][1024:].any()), "K5 flags no corrupted row")
+    host = native.unpack_file(
+        stream[hoff:], n_lines, cfg.n_scale_bits, cfg.n_mant_size_bits,
+        cfg.n_table_id_bits, read_lrms=True, n_channels=2)
+    for key in ("ba", "sf", "mant"):
+        check(np.array_equal(parsed[key][:1024].cpu().numpy(),
+                             host[key][:1024]),
+              f"K5 + post-pass {key} differs from the host parser")
+    # a block's LRMS flags are its last channel's row
+    check(np.array_equal(
+        parsed["lrms"][:1024].reshape(512, 2, -1)[:, -1].cpu().numpy() != 0,
+        host["lrms"][:512] != 0),
+        "K5 + post-pass lrms differs from the host parser")
+    # K1 at the two shapes the post-pass gives it: one sign bit per line of
+    # an active band, and the 25 LRMS flags behind the walk's end
+    ba_k = torch.where((rec[1] & 0xFF) > 0, (rec[1] & 0xFF) + 1, 0)
+    sign_off = (rec[2][:, lay["seg"]] + lay["line_in_band"]).to(
+        torch.int32).contiguous()
+    sign_w = (ba_k[:, lay["seg"]] > 0).to(torch.int32)
+    lrms_pos = (rec[3][:, 3:4] + torch.arange(
+        rec[1].shape[1], dtype=torch.int32, device=dev)).contiguous()
+    for what, o, w in (("sign", sign_off, sign_w),
+                       ("LRMS", lrms_pos, torch.ones_like(lrms_pos))):
+        check(torch.equal(K.extract_codes(wk_t, o, w),
+                          K.extract_codes_plain(wk_t, o, w)),
+              f"K1 differs from its plain version at the {what} shape")
+    # K5 past the rows the default stream gives it: 1,024-word rows, and
+    # the same bits read with 5 mantissa-size bits (allocations up to 32)
+    wide_t = torch.nn.functional.pad(wk_t, (0, 1024 - bucket)).contiguous()
+    for what, a in (("1,024-word rows", (wide_t, *walk_args[1:])),
+                    ("5 size bits", (wide_t, *walk_args[1:4], 5,
+                                     walk_args[5]))):
+        got = K.huffman_walk(*a)
+        for name, x, y in zip(("code", "basf", "soff", "misc"), got,
+                              K.huffman_walk_plain(*a)):
+            check(torch.equal(x, y),
+                  f"K5 {name} differs from its plain version at {what}")
+    # operations: ~20 integer operations per decoded line, ~10 per band
+    active = (rec[1] & 0xFF) > 0
+    lines_walked = int((active.long() * lay["n_lines"][None, :]).sum())
+    record("huffman_walk", 0.0, lambda: K.huffman_walk(*walk_args),
+           lambda: K.huffman_walk_plain(*walk_args),
+           nbytes(wk_t, *lut.values(), *rec),
+           20 * lines_walked + 10 * active.numel(), plain_runs=3)
+
+    # K6 on the compacted weighted-mode maskers of the same chunk
+    height, bark, keep = psycho.aidan_peaks(variants, FS, "weighted",
+                                            psy["hann"])
+    slots = psycho.compact_slots(height, keep, bark, psy, 0.37)
+    check(slots[0].shape == (3072, 513), f"K6 slots {tuple(slots[0].shape)}")
+    check(int(keep.sum(1).max()) <= 513, "more peaks than slots")
+    args6 = (*slots, drops, psy["zvec"])
+    out = K.spread_maskers(*args6)
+    plain = K.spread_maskers_plain(*args6)
+    err = (out - plain).abs()
+    check(bool((err <= K6_RTOL * plain.abs() + 1e-30).all()),
+          f"K6 beyond rtol {K6_RTOL}: max rel "
+          f"{float((err / plain.abs().clamp(min=1e-30)).max())}")
+    d_spl = (psycho.spl(psy["quiet_i"][None] + out)
+             - psycho.spl(psy["quiet_i"][None] + plain)).abs().max()
+    check(float(d_spl) <= K6_SPL_ATOL_DB, f"K6 threshold off by {d_spl} dB")
+    # operations: 11 per (row, valid slot, line) triple
+    record("spread_maskers", float(err.max()),
+           lambda: K.spread_maskers(*args6),
+           lambda: K.spread_maskers_plain(*args6),
+           nbytes(*args6, out), 11 * int(slots[3].sum()) * out.shape[1])
     torch.cuda.synchronize()
     for name, r in res.items():
         say("1-kernel", name=name, **r)
     return res
 
 
-def phase2(torch, eng, files) -> dict:
+def check_launched(launches: dict, names, path: str) -> None:
+    for name in names:                 # (the CPU rehearsal launches none)
+        check(launches[name] > 0 or DEV == "cpu",
+              f"kernel {name} was never launched on {path}")
+
+
+def parses_back(stream: bytes, cfg, pcm: np.ndarray) -> None:
     from pactpu_torch import native
     from pactpu_torch.codec.header import read_header
+    parsed = native.unpack_file(
+        stream[read_header(stream)[2]:],
+        np.asarray(cfg.band_layout.n_lines, np.int32), cfg.n_scale_bits,
+        cfg.n_mant_size_bits, cfg.n_table_id_bits)
+    check(parsed["n_cblocks"] == 2 * n_blocks(pcm),
+          "stream does not parse back to its block count")
+
+
+def phase2(torch, eng, files):
     from pactpu_torch.ops import kernels as K
     eng.decode(eng.encode(files[0][:FS]))            # warm the libraries
     sync(torch)
@@ -284,32 +456,33 @@ def phase2(torch, eng, files) -> dict:
         check(fs == fs2 == FS and np.array_equal(out, out2),
               "roundtrip_many PCM differs from serial decode")
         check(out.shape[0] >= pcm.shape[0], "decoded PCM too short")
-        parsed = native.unpack_file(
-            s[read_header(s)[2]:],
-            np.asarray(cfg.band_layout.n_lines, np.int32), cfg.n_scale_bits,
-            cfg.n_mant_size_bits, cfg.n_table_id_bits)
-        check(parsed["n_cblocks"] == 2 * n_blocks(pcm),
-              "stream does not parse back to its block count")
+        parses_back(s, cfg, pcm)
         snr = snr_db(pcm, out)
         check(np.isfinite(snr) and snr > SNR_FLOOR_DB,
               f"SNR {snr:.2f} dB not above the {SNR_FLOOR_DB} dB floor")
         snrs.append(round(snr, 3))
-    for name, n in launches.items():   # (the CPU rehearsal launches none)
-        check(n > 0 or DEV == "cpu",
-              f"kernel {name} was never launched on the main path")
+    check_launched(launches, [k for k, v in PATH_OF.items() if v == "main"],
+                   "the main path")
     say("2-main-path", files=len(files),
         blocks=[n_blocks(p) for p in files], snr_db=snrs,
         bytes=[len(s) for s, _ in serial], launches=launches)
-    return launches
+    return launches, [s for s, _ in serial], [out for _, (_, out) in serial]
 
 
-def phase3(eng) -> None:
-    z = np.load(FIXTURE)
+def fixture_decode(eng, path: str = FIXTURE):
+    """Decode the stream of a JAX-made fixture: within 1 LSB of the JAX
+    PCM.  Returns (input pcm, stream, JAX pcm, |difference|)."""
+    z = np.load(path)
     pcm, stream, ref = z["pcm"], z["stream"].tobytes(), z["decoded"]
     fs, out = eng.decode(stream)
     check(out.shape == ref.shape, "fixture decode has the wrong shape")
     d = np.abs(out.astype(np.int32) - ref.astype(np.int32))
     check(int(d.max()) <= 1, f"fixture decode off by {int(d.max())} LSB")
+    return pcm, stream, ref, d
+
+
+def phase3(eng, path: str = FIXTURE, phase: str = "3-fixture") -> None:
+    pcm, stream, ref, d = fixture_decode(eng, path)
     mine = eng.encode(pcm)
     _, mine_pcm = eng.decode(mine)
     rj, rt = rows_of(stream), rows_of(mine)
@@ -318,7 +491,7 @@ def phase3(eng) -> None:
           f"re-encode SNR {snr_t:.3f} dB vs JAX {snr_j:.3f} dB")
     check(abs(len(mine) - len(stream)) <= 0.01 * len(stream),
           f"re-encode size {len(mine)} vs JAX {len(stream)}")
-    say("3-fixture", identical_share=float((d == 0).mean()),
+    say(phase, identical_share=float((d == 0).mean()),
         max_lsb=int(d.max()), rows=len(rj),
         rows_differing=sum(a != b for a, b in zip(rj, rt)) + abs(
             len(rj) - len(rt)),
@@ -326,9 +499,11 @@ def phase3(eng) -> None:
         bytes_jax=len(stream), bytes_port=len(mine))
 
 
-def phase4(torch, eng, files) -> None:
+def phase4(torch, eng, eng_dev, files, streams) -> None:
+    """eng decodes by host parse, eng_dev by device parse."""
     blocks = sum(n_blocks(p) for p in files)
     serial, batch = [], []
+    decode = {"host": [], "device": []}
     for _ in range(3):
         t0 = time.perf_counter()
         for pcm in files:
@@ -337,11 +512,83 @@ def phase4(torch, eng, files) -> None:
         t0 = time.perf_counter()
         eng.roundtrip_many(files)
         batch.append(time.perf_counter() - t0)
+        for route, e in (("host", eng), ("device", eng_dev), ("device",
+                         eng_dev), ("host", eng)):
+            t0 = time.perf_counter()
+            for s in streams:
+                e.decode(s)
+            decode[route].append(time.perf_counter() - t0)
     say("4-throughput", blocks=blocks,
+        decode_host_parse_blocks_per_s=[round(blocks / s, 1)
+                                        for s in decode["host"]],
+        decode_device_parse_blocks_per_s=[round(blocks / s, 1)
+                                          for s in decode["device"]],
         serial_blocks_per_s=[round(blocks / s, 1) for s in serial],
         batch_blocks_per_s=[round(blocks / s, 1) for s in batch],
         peak_mem_mb=(round(torch.cuda.max_memory_allocated() / 2 ** 20, 1)
                      if DEV != "cpu" else None))
+
+
+def phase5(torch, eng_dev, streams, host_pcm) -> dict:
+    """The device-parse decode route against the host route's PCM."""
+    from pactpu_torch.codec.header import read_header
+    from pactpu_torch.ops import kernels as K
+    eng_dev.decode(streams[0])                       # warm (LUT upload)
+    sync(torch)
+    K.reset_launches()
+    outs = [eng_dev.decode(s) for s in streams]
+    sync(torch)
+    launches = dict(K.LAUNCHES)
+    for (fs, out), ref in zip(outs, host_pcm):
+        check(fs == FS and np.array_equal(out, ref),
+              "device-parse PCM differs from the host-parse PCM")
+    check_launched(launches, ["huffman_walk", "extract_codes"],
+                   "the device-parse route")
+    _, stream, _, d = fixture_decode(eng_dev)
+    # table id 15 in the first channel-block (the byte behind its prefix)
+    hoff = read_header(stream)[2]
+    bad = bytearray(stream)
+    bad[hoff + 4] |= 0x0F
+    try:
+        eng_dev.decode(bytes(bad))
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise SmokeError("device-parse decoded a corrupt stream")
+    say("5-device-parse", streams=len(streams), launches=launches,
+        fixture_identical_share=float((d == 0).mean()),
+        fixture_max_lsb=int(d.max()), corrupt=msg)
+    return launches
+
+
+def phase6(torch, make_engine, pcm) -> dict:
+    """The aidan peak modes: encode -> decode of one file per mode."""
+    from pactpu_torch import CodecConfig
+    from pactpu_torch.ops import kernels as K
+    launches = {}
+    for mode in ("para", "weighted"):
+        eng = make_engine(cfg=CodecConfig(peak_mode=mode))
+        sync(torch)
+        K.reset_launches()
+        stream = eng.encode(pcm)
+        fs, out = eng.decode(stream)
+        sync(torch)
+        launches[mode] = dict(K.LAUNCHES)
+        check_launched(launches[mode],
+                       ["spread_maskers", "water_fill", "pack_words"],
+                       f"the {mode} path")
+        check(launches[mode]["spread_maskers_up"] == 0,
+              f"the {mode} path ran the dense upslope kernel")
+        parses_back(stream, eng.cfg, pcm)
+        snr = snr_db(pcm, out)
+        check(fs == FS and np.isfinite(snr) and snr > SNR_FLOOR_DB,
+              f"{mode}: SNR {snr:.2f} dB not above the {SNR_FLOOR_DB} dB "
+              "floor")
+        say("6-aidan", mode=mode, blocks=n_blocks(pcm), bytes=len(stream),
+            snr_db=round(snr, 3), launches=launches[mode])
+        if mode == "weighted":
+            phase3(eng, FIXTURE_WEIGHTED, "6-aidan-fixture")
+    return launches["weighted"]
 
 
 def main() -> int:
@@ -360,15 +607,22 @@ def main() -> int:
     smi = phase0(torch)
     files = [synth(10.0, seed) for seed in (1, 2, 3)] + [synth(60.0, 4)]
     eng = Engine(device="cuda", rate_mode="reservoir")
-    res = phase1(torch, device_tables(eng.cfg, "cuda"), files[-1])
-    launches = phase2(torch, eng, files)
+    eng_dev = Engine(device="cuda", decode_parse="device")
+    res = phase1(torch, device_tables(eng.cfg, "cuda"), files[-1],
+                 eng.encode(files[-1]))
+    launches, streams, host_pcm = phase2(torch, eng, files)
     phase3(eng)
-    phase4(torch, eng, files)
+    phase4(torch, eng, eng_dev, files, streams)
+    on_path = {"main": launches,
+               "device-parse": phase5(torch, eng_dev, streams, host_pcm),
+               "aidan": phase6(torch, lambda **kw: Engine(device="cuda",
+                                                          **kw), files[-1])}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda",
              source=f"pactpu_torch/csrc/{REPLACES[name][0]}",
-             replaces=REPLACES[name][1], launches=launches[name],
-             **res[name]) for name in REPLACES]}))
+             replaces=REPLACES[name][1], path=PATH_OF[name],
+             launches=on_path[PATH_OF[name]][name], **res[name])
+        for name in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

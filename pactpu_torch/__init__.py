@@ -9,8 +9,9 @@ Layout (mirrors ``pactpu``)
 ---------------------------
 - ``pactpu_torch.ops``    tensor ops: MDCT, quantizers, psychoacoustics,
                           water-fill allocation, Huffman selection, payload
-                          packing, and ``kernels`` (the four CUDA kernels
-                          with their plain PyTorch versions)
+                          packing, the device-side Huffman parse, and
+                          ``kernels`` (the six CUDA kernels with their
+                          plain PyTorch versions)
 - ``pactpu_torch.codec``  stream header, WAV I/O and the file ``Engine``
 - ``pactpu_torch.utils``  ``CodecConfig``
 - ``pactpu_torch.native`` ctypes binding of the repository's csrc/wakbits.cc

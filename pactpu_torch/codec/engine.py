@@ -22,9 +22,16 @@ rate modes
                once and feeds both passes.
 
 In both modes channel 0's allocation leftover funds channel 1 of the same
-block (codec/codec.py:258-260).  Decoding parses on the host, repacks the
-mantissa codes into fixed-width words, and slices them back on the device
-with kernel K1 before synthesis and overlap-add.
+block (codec/codec.py:258-260).  `peak_mode` "para" and "weighted" swap the
+psychoacoustic model's peak picker and take the compact masking sum
+(kernel K6); the rest of the encoder is the same.
+
+Decoding has two parse routes (`decode_parse`, or PACTPU_DECODE_PARSE):
+"host" (and "auto") parses in the native runtime, repacks the mantissa
+codes into fixed-width words, and slices them back on the device with
+kernel K1; "device" uploads the raw payload framed into word rows and runs
+the Huffman bit-walk there (kernel K5, then K1 for signs and LRMS flags).
+Both end in the same synthesis and overlap-add and give the same samples.
 
 Float32 products run in full float32: the engine turns TF32 off
 (`torch.backends.cuda.matmul.allow_tf32`, `torch.backends.cudnn.allow_tf32`)
@@ -35,6 +42,7 @@ uses Precision.HIGHEST for the MDCT and the masking product.
 from __future__ import annotations
 
 import itertools
+import os
 from functools import lru_cache
 from typing import Optional
 
@@ -44,6 +52,8 @@ import torch
 from pactpu_torch import native
 from pactpu_torch.codec.header import read_header, write_header
 from pactpu_torch.ops import bitalloc, bitpack, huffman, kernels, psycho
+from pactpu_torch.ops import huffman_decode as hd
+from pactpu_torch.ops import huffman_walk as hw
 from pactpu_torch.ops import quantize as q
 from pactpu_torch.ops.mdct import _mdct_basis_np, imdct, mdct
 from pactpu_torch.ops.windows import analysis_window, hann_window
@@ -65,6 +75,8 @@ _WIDE_WORDS = (384, PACK_WORDS_MAX)
 # mantissa word widths of the decoder's repacked rows
 _WORD_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512)
 _TAIL_BUCKETS = (16, 32, 64, 96, 128, 192, 256, 384, 512)
+# raw payload word widths of the device-parse route's rows
+_PAYLOAD_WORD_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 
 
 @lru_cache(maxsize=8)
@@ -132,7 +144,8 @@ def analyze(cfg: CodecConfig, frames_i16: torch.Tensor, dev: dict) -> dict:
     overall = q.scale_factor(torch.abs(lines).amax(-1), cfg.n_scale_bits, 5)
     scaled = lines * q.exp2i(overall)[..., None]
     lrms = psycho.lrms_decision(frames, lay, cfg.ms_decision_factor)
-    smr, mixed = psycho.stereo_smrs(sw, scaled, overall, lrms, psy, lay)
+    smr, mixed = psycho.stereo_smrs(sw, scaled, overall, lrms, psy, lay,
+                                    cfg.sample_rate, cfg.peak_mode)
     return dict(mixed=mixed, smr=smr, lrms=lrms, overall=overall)
 
 
@@ -248,9 +261,39 @@ def decode_chunk(cfg: CodecConfig, ba, sf, words, overall, lrms, carry,
     mant = kernels.extract_codes(words, off, width).reshape(b, c, half)
     td = decode_body(cfg, ba, sf.to(torch.int32), mant,
                      overall.to(torch.int32), lrms, dev)
+    return _overlap_add(td, carry)
+
+
+def _overlap_add(td: torch.Tensor, carry: torch.Tensor):
+    """Pre-overlap blocks f32[B, C, 2N] and the previous chunk's carry
+    f32[C, N] -> (pcm i16[B, C, N], carry')."""
+    half = td.shape[-1] // 2
     first, second = td[..., :half], td[..., half:]
     prev_second = torch.cat([carry[None], second[:-1]], dim=0)
     return q.float_to_pcm16(prev_second + first), second[-1]
+
+
+def walk_decode_chunk(cfg: CodecConfig, words, nbits, carry, dev: dict,
+                      lut: dict):
+    """One chunk of the device-parse route (pactpu chunk_walk_decode_fn):
+    Huffman parse of the raw payload rows, synthesis, overlap-add, 16-bit
+    conversion.
+
+    words: i32[2B, W] payload rows; nbits: i32[2B]; lut: the walk LUT on
+    the device.  Returns (pcm i16[B, 2, N], carry', bad bool[2B])."""
+    c, half = cfg.n_channels, cfg.n_mdct_lines
+    rec = kernels.huffman_walk(
+        words, lut, cfg.band_layout.n_lines, cfg.n_scale_bits,
+        cfg.n_mant_size_bits, cfg.n_table_id_bits)
+    p = hd.parse_post(rec, words, nbits, dev["lay"])
+    b = words.shape[0] // c
+    # a block's LRMS flags are its last channel's row
+    td = decode_body(cfg, p["ba"].reshape(b, c, -1),
+                     p["sf"].reshape(b, c, -1),
+                     p["mant"].reshape(b, c, half),
+                     p["overall"].reshape(b, c),
+                     p["lrms"].reshape(b, c, -1)[:, -1] != 0, dev)
+    return (*_overlap_add(td, carry), p["bad"])
 
 
 def expand_flat(flat: torch.Tensor, ba_rows: torch.Tensor, n_words: int,
@@ -338,16 +381,25 @@ class Engine:
     """File-level encoder/decoder of .wak streams on one torch device.
 
     device: where the chunk programs run ("cuda", "cuda:0", "cpu"); there
-    is no default.  On a CUDA device the four kernels run as hand-written
+    is no default.  On a CUDA device the six kernels run as hand-written
     CUDA; on the CPU their plain versions run.  chunk_blocks fixes the
-    batch size (None = adapt up to DEFAULT_CHUNK_BLOCKS)."""
+    batch size (None = adapt up to DEFAULT_CHUNK_BLOCKS).  decode_parse
+    places the decoder's Huffman parse: "host" (native runtime), "device"
+    (kernel K5 on the raw payload) or "auto" (= host: the native runtime is
+    always there); None reads PACTPU_DECODE_PARSE (default auto)."""
 
     def __init__(self, device, cfg: Optional[CodecConfig] = None,
                  rate_mode: str = "reservoir",
-                 chunk_blocks: Optional[int] = None):
+                 chunk_blocks: Optional[int] = None,
+                 decode_parse: Optional[str] = None):
         if rate_mode not in ("cbr", "reservoir"):
             raise ValueError(f"rate mode {rate_mode!r} is not ported "
                              "(use 'reservoir' or 'cbr')")
+        if decode_parse is None:
+            decode_parse = os.environ.get("PACTPU_DECODE_PARSE", "auto")
+        if decode_parse not in ("auto", "device", "host"):
+            raise ValueError(f"PACTPU_DECODE_PARSE={decode_parse!r}: "
+                             "expected auto, device or host")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda'): no CUDA device")
@@ -355,6 +407,7 @@ class Engine:
         _check_config(self.cfg)
         self.rate_mode = rate_mode
         self.chunk_blocks = chunk_blocks
+        self.decode_parse = decode_parse
         self._dev = None
         _full_fp32()
 
@@ -502,15 +555,130 @@ class Engine:
         numSamples (incl. the Q6 padding quirk)."""
         return self._decode_finish(*self._decode_dispatch(data))
 
-    def _decode_staging(self, data: bytes):
-        """Host half of a decode: native parse, repack of the mantissa
-        codes into fixed-width words, and compaction of each chunk's rows
-        into one flat buffer (padded rows where a chunk's total exceeds
-        PACK_DENSE_WORDS per row).  Returns (cfg, num_samples, b, sizes,
-        n_words, flat, chunk_args) with chunk_args[k] = (ba, sf, words,
-        overall, lrms) numpy arrays."""
+    def decode_many(self, datas) -> list:
+        """Batch decode: every stream is parsed (or framed), uploaded and
+        queued before the first PCM download blocks."""
+        staged = [self._decode_dispatch(d) for d in datas]
+        return [self._decode_finish(*st) for st in staged]
+
+    def decode_range(self, data: bytes, start_sample: int,
+                     num_samples: int) -> tuple[int, np.ndarray]:
+        """Random-access decode: (sample_rate, int16 [n, C]) of the sample
+        window [start_sample, start_sample + num_samples), clipped to the
+        stream, without decoding the rest.
+
+        The per-channel-block byte-count prefixes make a stream seekable
+        (reference codec/pacfile.py:170-183): the host scans prefixes to
+        the coded blocks the window needs, and the same staging and chunk
+        programs as decode() run on that slice, on either parse route.
+        Output block i is the overlap-add of frames i and i + 1, so a
+        window costs ceil(window / N) + 1 coded blocks whatever the file's
+        length.  The output equals the same slice of a full decode()."""
+        cfg, total_samples, off = read_header(data)
+        half, c = cfg.n_mdct_lines, cfg.n_channels
+        s0 = max(0, int(start_sample))
+        s1 = min(int(total_samples),
+                 int(start_sample) + max(0, int(num_samples)))
+        if s1 <= s0:
+            return cfg.sample_rate, np.zeros((0, c), np.int16)
+
+        payload = data[off:]
+        i0, i1 = s0 // half, (s1 - 1) // half        # audio block range
+        spans = []                                    # per-frame byte spans
+        pos = 0
+        while pos < len(payload) and len(spans) <= i1 + 1:
+            start = pos
+            for _ in range(c):
+                if pos + 4 > len(payload):
+                    raise ValueError("truncated channel-block header")
+                pos += 4 + int.from_bytes(payload[pos:pos + 4], "little")
+                if pos > len(payload):
+                    raise ValueError("corrupt payload: channel-block "
+                                     "length exceeds the stream")
+            spans.append((start, pos))
+        if not spans:
+            raise ValueError("no channel-blocks found in payload")
+        last = len(spans) - 1
+        f0, f1 = min(i0, last), min(i1 + 1, last)
+        at_eof = f1 == last and pos >= len(payload)
+
+        mini = (write_header(cfg, total_samples)[0]
+                + payload[spans[f0][0]:spans[f1][1]])
+        _, _, mb, ola_dev, n_bad = self._decode_dispatch(mini)
+        ola = self._fetch_ola(ola_dev, mb, c, n_bad, first_cblock=f0 * c)
+        # row t is the overlap-add of frames f0+t-1 and f0+t = audio block
+        # f0+t-1; row 0 lacks its true carry and is dropped (as the whole-
+        # file decoder's first-block skip); the tail row is the final
+        # flush, valid only at the end of the stream
+        rows = ola[1:mb + (1 if at_eof else 0)]
+        audio = rows.transpose(1, 0, 2).reshape(c, -1).T
+        base = f0 * half
+        return cfg.sample_rate, audio[s0 - base:s1 - base].copy()
+
+    def _decode_staging(self, data: bytes) -> dict:
+        """Host half of a decode: read the header and stage the payload by
+        the engine's parse route.  Returns dict(cfg, num_samples, b, run,
+        chunk_args): `run(*chunk_args[k], carry)` uploads chunk k and
+        queues its decode, returning (pcm i16[B, C, N], carry', bad
+        bool[C B] or None)."""
         cfg, num_samples, off = read_header(data)
         _check_config(cfg)
+        if self.decode_parse == "device":
+            staged = self._decode_staging_device_parse(data, off, cfg)
+            if staged is None:
+                raise ValueError(
+                    "PACTPU_DECODE_PARSE=device: this stream/table set "
+                    "does not fit the device parser (oversized rows or "
+                    "Huffman codes beyond the LUT's bounds)")
+        else:
+            staged = self._decode_staging_host_parse(data, off, cfg)
+        return dict(cfg=cfg, num_samples=num_samples, **staged)
+
+    def _decode_staging_device_parse(self, data: bytes, off: int,
+                                     cfg: CodecConfig):
+        """Stage a device-parse decode: frame the raw payload into word
+        rows; the chunk program (kernel K5 on a CUDA device, its plain
+        version on the CPU) does everything else.  Whether the stream fits
+        is decided here, before staging: returns None when it needs the
+        host parser (rows wider than the largest bucket, or tables outside
+        the LUT's bounds)."""
+        lut = hw.device_walk_lut(None, self.device)
+        if lut is None:
+            return None
+        words, nbits = hd.frame_rows(data[off:],
+                                     word_cap=_PAYLOAD_WORD_BUCKETS[-1])
+        if words is None:
+            return None
+        c = cfg.n_channels
+        rows = words.shape[0]
+        if rows % c:
+            raise ValueError(f"corrupt payload: {rows} channel-blocks for "
+                             f"{c} channels")
+        w_bucket = next(w for w in _PAYLOAD_WORD_BUCKETS
+                        if w >= words.shape[1])
+        b = rows // c
+        sizes = _chunk_sizes(b, self._chunk(b))
+        offs = _offsets(sizes, scale=c)
+        words = np.pad(words, ((0, offs[-1] - rows),
+                               (0, w_bucket - words.shape[1])))
+        nbits = np.pad(nbits, (0, offs[-1] - rows))
+        dev = self.tables()
+
+        def run(words_k, nbits_k, carry):
+            return walk_decode_chunk(
+                cfg, self._upload(words_k.view(np.int32)),
+                self._upload(nbits_k), carry, dev, lut)
+
+        return dict(b=b, run=run, chunk_args=[
+            (words[offs[k]:offs[k + 1]], nbits[offs[k]:offs[k + 1]])
+            for k in range(len(sizes))])
+
+    def _decode_staging_host_parse(self, data: bytes, off: int,
+                                   cfg: CodecConfig) -> dict:
+        """Stage a host-parse decode: native parse, repack of the mantissa
+        codes into fixed-width words, and compaction of each chunk's rows
+        into one flat buffer (padded rows where a chunk's total exceeds
+        PACK_DENSE_WORDS per row)."""
         c = cfg.n_channels
         n_lines = np.asarray(cfg.band_layout.n_lines, np.int32)
         parsed = native.unpack_file(
@@ -556,49 +724,79 @@ class Engine:
             rows_all = d2(rows_pad).reshape(b_pad * c, n_words)
             words = [rows_all[offs[k] * c:offs[k + 1] * c]
                      for k in range(len(sizes))]
-        chunk_args = [(ba[offs[k]:offs[k + 1]], sf[offs[k]:offs[k + 1]],
-                       words[k].view(np.int32),
-                       overall[offs[k]:offs[k + 1]],
-                       lrms[offs[k]:offs[k + 1]])
-                      for k in range(len(sizes))]
-        return cfg, num_samples, b, sizes, n_words, flat, chunk_args
+        dev = self.tables()
+        up = self._upload
+
+        def run(ba_k, sf_k, words_k, overall_k, lrms_k, carry):
+            ba_k, words_k = up(ba_k), up(words_k)
+            if flat:
+                words_k = expand_flat(
+                    words_k, ba_k.reshape(-1, ba_k.shape[-1]).to(
+                        torch.int32), n_words, dev["lay"])
+            return (*decode_chunk(cfg, ba_k, up(sf_k), words_k,
+                                  up(overall_k), up(lrms_k), carry, dev),
+                    None)
+
+        return dict(b=b, run=run, chunk_args=[
+            (ba[offs[k]:offs[k + 1]], sf[offs[k]:offs[k + 1]],
+             words[k].view(np.int32), overall[offs[k]:offs[k + 1]],
+             lrms[offs[k]:offs[k + 1]]) for k in range(len(sizes))])
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _decode_dispatch(self, data: bytes):
         """Stage, upload and queue every chunk's decode; returns the state
         _decode_finish needs, without waiting for the device."""
         return self._decode_launch(self._decode_staging(data))
 
-    def _decode_launch(self, staged):
+    def _decode_launch(self, staged: dict):
         """Device half of a decode dispatch: upload each chunk of a
-        _decode_staging result and queue its synthesis."""
-        (cfg, num_samples, b, sizes, n_words, flat, chunk_args) = staged
-        dev = self.tables()
+        _decode_staging result and queue its decode.  Returns (cfg,
+        num_samples, b, ola, n_bad): ola i16[b + 1 (+ flag rows), C, N] is
+        the overlap-added PCM; on the device-parse route the n_bad
+        per-channel-block corruption flags ride behind it as further rows,
+        so that one download brings both."""
+        cfg, b = staged["cfg"], staged["b"]
         c, half = cfg.n_channels, cfg.n_mdct_lines
-        up = lambda a: torch.from_numpy(  # noqa: E731
-            np.ascontiguousarray(a)).to(self.device)
         carry = torch.zeros((c, half), device=self.device)
-        pcm_chunks = []
-        for ba, sf, words, overall, lrms in chunk_args:
-            ba, words = up(ba), up(words)
-            if flat:
-                words = expand_flat(words, ba.reshape(-1, ba.shape[-1]).to(
-                    torch.int32), n_words, dev["lay"])
-            pcm, carry = decode_chunk(cfg, ba, up(sf), words, up(overall),
-                                      up(lrms), carry, dev)
+        pcm_chunks, bad_chunks = [], []
+        for args in staged["chunk_args"]:
+            pcm, carry, bad = staged["run"](*args, carry)
             pcm_chunks.append(pcm)
+            if bad is not None:
+                bad_chunks.append(bad)
         # the final-flush half (reference pacfile.py:171-178) is the carry
         # when every block was real, else the overlap-add of the first
         # padded block; appending the carry row unifies both
         tail = q.float_to_pcm16(carry)[None]
         ola = torch.cat(pcm_chunks + [tail])[:b + 1]
-        return cfg, num_samples, b, ola
+        n_bad = 0
+        if bad_chunks:
+            n_bad = b * c
+            flags = torch.cat(bad_chunks)[:n_bad].to(torch.int16)
+            flags = torch.nn.functional.pad(flags, (0, -n_bad % (c * half)))
+            ola = torch.cat([ola, flags.reshape(-1, c, half)])
+        return cfg, staged["num_samples"], b, ola, n_bad
 
-    def _decode_finish(self, cfg, num_samples, b, ola_dev):
-        """Blocking half of decode: the single PCM download + reshaping.
-        Row 0 (the MDCT delay) is dropped, the flush row kept."""
+    @staticmethod
+    def _fetch_ola(ola_dev, b: int, c: int, n_bad: int,
+                   first_cblock: int = 0) -> np.ndarray:
+        """The single download of a decode: the overlap-added PCM rows
+        i16[b + 1, C, N], after raising on a channel-block the device
+        parser flagged (numbered from first_cblock)."""
         ola = ola_dev.cpu().numpy()
+        bad = ola[b + 1:].reshape(-1)[:n_bad]
+        if bad.any():
+            raise ValueError("corrupt payload at channel-block "
+                             f"{first_cblock + int(np.argmax(bad))}")
+        return ola[:b + 1]
+
+    def _decode_finish(self, cfg, num_samples, b, ola_dev, n_bad):
+        """Blocking half of decode: the single download + reshaping.
+        Row 0 (the MDCT delay) is dropped, the flush row kept."""
         c = cfg.n_channels
-        audio = ola[1:b + 1]
+        audio = self._fetch_ola(ola_dev, b, c, n_bad)[1:]
         pcm = audio.transpose(1, 0, 2).reshape(c, -1).T[:num_samples]
         return cfg.sample_rate, pcm.copy()
 
@@ -609,10 +807,11 @@ def _check_config(cfg: CodecConfig) -> None:
     todo = []
     if cfg.n_channels != 2:
         todo.append(f"n_channels={cfg.n_channels}")
-    for field, want in (("window", "sine"), ("peak_mode", "ref"),
-                        ("alloc_mode", "water_fill"),
-                        ("ms_decision", "intensity")):
-        if getattr(cfg, field) != want:
+    for field, want in (("window", ("sine",)),
+                        ("peak_mode", ("ref", "para", "weighted")),
+                        ("alloc_mode", ("water_fill",)),
+                        ("ms_decision", ("intensity",))):
+        if getattr(cfg, field) not in want:
             todo.append(f"{field}={getattr(cfg, field)!r}")
     if cfg.n_mant_size_bits > 5:
         todo.append("n_mant_size_bits > 5")

@@ -10,6 +10,10 @@
 
 #include <cuda_runtime.h>
 
+// K5 takes the band layout by value: at most this many bands
+// (kernels.WALK_MAX_BANDS).
+constexpr int kWalkMaxBands = 64;
+
 extern "C" {
 
 // K1: out[r, l] = the width[r, l]-bit field at bit off[r, l] of row r's
@@ -37,5 +41,24 @@ int pactpu_spread_up(const float* iprime, const float* mspl,
                      const float* bark, const float* zvec, float* out,
                      int rows, int n_maskers, int n_lines,
                      cudaStream_t stream);
+
+// K5: per-row Huffman bit-walk through the two-level LUT (l1 [n_tab, 2048],
+// l1b [n_tab, 128], l2 [n_tab, l2_width]); n_lines_host is a HOST array of
+// n_bands line counts.  Writes code [rows, total_lines] (active lines only:
+// the caller zero-fills it), basf and soff [rows, n_bands], misc [rows, 5].
+int pactpu_huffman_walk(const uint32_t* words, const uint32_t* l1,
+                        const uint32_t* l1b, const uint32_t* l2,
+                        const int32_t* n_lines_host, int32_t* code,
+                        int32_t* basf, int32_t* soff, int32_t* misc, int rows,
+                        int n_words, int n_bands, int total_lines, int n_tab,
+                        int l2_width, int n_scale_bits, int n_mant_size_bits,
+                        int n_table_id_bits, cudaStream_t stream);
+
+// K6: full-slope masking-intensity sum per (row, line) over the row's valid
+// masker slots (mspl, lev, bark, valid [rows, n_slots]; drop [rows]).
+int pactpu_spread(const float* mspl, const float* lev, const float* bark,
+                  const float* valid, const float* drop, const float* zvec,
+                  float* out, int rows, int n_slots, int n_lines,
+                  cudaStream_t stream);
 
 }  // extern "C"

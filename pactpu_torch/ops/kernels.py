@@ -1,18 +1,20 @@
-"""The port's four hand-written Hopper kernels, their wrappers, their plain
+"""The port's six hand-written Hopper kernels, their wrappers, their plain
 PyTorch versions and their launch counts.
 
-| kernel            | replaces (pactpu/ops/pallas_ops.py)       | source             |
-|-------------------|-------------------------------------------|--------------------|
-| extract_codes     | extract_codes / _extract_codes_kernel     | csrc/extract_codes.cu |
-| water_fill        | water_fill / _water_fill_kernel           | csrc/water_fill.cu |
-| pack_words        | pack_words / _pack_words_kernel           | csrc/pack_words.cu |
-| spread_maskers_up | spread_maskers_up / _make_spread_up_kernel | csrc/spread_up.cu |
+| kernel            | replaces (in pactpu/ops/)              | source (csrc/)   |
+|-------------------|----------------------------------------|------------------|
+| extract_codes     | pallas_ops._extract_codes_kernel       | extract_codes.cu |
+| water_fill        | pallas_ops._water_fill_kernel          | water_fill.cu    |
+| pack_words        | pallas_ops._pack_words_kernel          | pack_words.cu    |
+| spread_maskers_up | pallas_ops._make_spread_up_kernel      | spread_up.cu     |
+| huffman_walk      | huffman_walk._walk_kernel              | huffman_walk.cu  |
+| spread_maskers    | pallas_ops._spread_kernel              | spread.cu        |
 
-The CUDA sources are compiled by hand with nvcc for sm_90a into one shared
-library with a plain C interface (csrc/kernels.h) under
-``pactpu_torch/_build/`` at first use, rebuilt when a source is newer than
-the library, and loaded with ctypes.  Nothing is compiled or loaded at
-import time.
+The CUDA sources are compiled by hand with nvcc for sm_90a (one nvcc per
+source, in parallel) into one shared library with a plain C interface
+(csrc/kernels.h) under ``pactpu_torch/_build/`` at first use, rebuilt when
+a source is newer than the library, and loaded with ctypes.  Nothing is
+compiled or loaded at import time.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else.  A tensor on the CPU goes to the plain version; a tensor on
@@ -37,16 +39,21 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("extract_codes.cu", "water_fill.cu", "pack_words.cu",
-           "spread_up.cu")
+           "spread_up.cu", "huffman_walk.cu", "spread.cu")
 LIB_PATH = os.path.join(BUILD_DIR, "libpactpu_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "kernels_build.log")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches of each kernel since the last reset_launches(); the plain
 # versions never count
 LAUNCHES = {"extract_codes": 0, "water_fill": 0, "pack_words": 0,
-            "spread_maskers_up": 0}
+            "spread_maskers_up": 0, "huffman_walk": 0, "spread_maskers": 0}
+
+# root peek bits of the Huffman walk's two-level LUT (huffman_walk.cu
+# carries the same constant)
+WALK_ROOT_BITS = 11
+WALK_MAX_BANDS = 64     # the kernel takes the band layout by value
 
 _LOG2_10_OVER_10 = float(np.log2(10.0) / 10.0)
 _MASK32 = 0xFFFFFFFF
@@ -60,6 +67,8 @@ _C_FUNCS = {
                    [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P]),
     "pack_words": ("pactpu_pack_words", [_P] * 4 + [_I] * 3 + [_P]),
     "spread_maskers_up": ("pactpu_spread_up", [_P] * 5 + [_I] * 3 + [_P]),
+    "huffman_walk": ("pactpu_huffman_walk", [_P] * 9 + [_I] * 9 + [_P]),
+    "spread_maskers": ("pactpu_spread", [_P] * 7 + [_I] * 3 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -83,24 +92,42 @@ def _nvcc() -> str:
 
 def build() -> float:
     """Compile the kernels' library if it is missing or older than a
-    source.  Returns the seconds spent compiling (0.0 if it was current);
-    nvcc's output, ptxas register and shared-memory report included, goes
-    to BUILD_LOG."""
+    source: one nvcc per source, all started together, then one link.
+    Returns the seconds spent (0.0 if the library was current); nvcc's
+    output, ptxas register and shared-memory report included, goes to
+    BUILD_LOG."""
     deps = [os.path.join(CSRC_DIR, s) for s in SOURCES + ("kernels.h",)]
     if (os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH)
             >= max(os.path.getmtime(d) for d in deps)):
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, s)]
+            for s, obj in zip(SOURCES, objs)]
+    tmp = f"{LIB_PATH}.{tag}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [" ".join(cmd) + "\n" + proc.communicate()[0]
+            for cmd, proc in zip(cmds, procs)]
+    failed = [log for log, proc in zip(logs, procs) if proc.returncode != 0]
+    if not failed:
+        link = [nvcc, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(link, capture_output=True, text=True)
+        logs.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed = logs[-1:]
     seconds = time.perf_counter() - t0
     with open(BUILD_LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        f.write("".join(logs))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "".join(failed))
     os.replace(tmp, LIB_PATH)
     return seconds
 
@@ -362,4 +389,189 @@ def spread_maskers_up_plain(iprime, mspl, bark, zvec,
                                            - 27.0) * up[cols][None])
         contrib = torch.where(on[cols][None], ip[:, cols, None] * e, 0.0)
         out[s:s + chunk] = contrib.sum(1)
+    return out
+
+
+# -- K5 huffman_walk ---------------------------------------------------------
+
+def _walk_check(words, lut, n_lines, n_scale_bits, n_mant_size_bits,
+                n_table_id_bits) -> None:
+    dev = words.device
+    _check("words", words, torch.int32, 2, dev)
+    for name in ("l1", "l1b", "l2"):
+        _check(name, lut[name], torch.int32, 2, dev)
+    if (lut["l1"].shape[1] != 1 << WALK_ROOT_BITS
+            or lut["l1b"].shape[1] != 128
+            or not lut["l1"].shape[0] == lut["l1b"].shape[0]
+            == lut["l2"].shape[0]):
+        raise ValueError("huffman_walk: LUT shapes disagree")
+    if any(int(n) < 0 for n in n_lines):
+        raise ValueError("huffman_walk: negative band line count")
+    # basf carries ba_raw and sf in 8 bits each; ba = ba_raw + 1 <= 32
+    if (not 0 <= n_mant_size_bits <= 5 or not 0 <= n_scale_bits <= 8
+            or not 0 <= n_table_id_bits <= 16):
+        raise ValueError("huffman_walk: n_mant_size_bits <= 5, n_scale_bits "
+                         "<= 8, n_table_id_bits <= 16")
+
+
+def huffman_walk(words: torch.Tensor, lut: dict, n_lines,
+                 n_scale_bits: int, n_mant_size_bits: int,
+                 n_table_id_bits: int):
+    """The serial Huffman bit-walk of a batch of channel-block rows.
+
+    words: i32[R, W] u32 bit patterns, MSB-first (words past W read as
+    zero); lut: the two-level LUT of pactpu_torch.ops.huffman_walk.
+    device_walk_lut (l1 i32[T, 2048], l1b i32[T, 128], l2 i32[T, P]);
+    n_lines: the band layout's line counts (a sequence of ints).  Per row:
+    read overall and the table id; per band read ba (stored minus one) and
+    sf, record the offset of the band's sign bits and skip them if the
+    band is active; per line of an active band decode one code through the
+    LUT (an escape is followed by the raw ba-bit mantissa).
+
+    Returns (code i32[R, lines] decoded unsigned values, 0 on inactive
+    lines; basf i32[R, bands] = ba_raw | sf << 8; soff i32[R, bands];
+    misc i32[R, 5] = overall, tid as read, bad (tid outside [1, T] or a
+    zero-length code on an active line), LRMS bit offset, end offset)."""
+    _walk_check(words, lut, n_lines, n_scale_bits, n_mant_size_bits,
+                n_table_id_bits)
+    dev = words.device
+    if _on_cpu(dev):
+        return huffman_walk_plain(words, lut, n_lines, n_scale_bits,
+                                  n_mant_size_bits, n_table_id_bits)
+    if len(n_lines) > WALK_MAX_BANDS:
+        raise ValueError(f"huffman_walk kernel: <= {WALK_MAX_BANDS} bands")
+    rows, n_bands = words.shape[0], len(n_lines)
+    total = int(sum(n_lines))
+    # inactive bands are never written: their lines stay zero
+    code = torch.zeros((rows, total), dtype=torch.int32, device=dev)
+    basf = torch.empty((rows, n_bands), dtype=torch.int32, device=dev)
+    soff = torch.empty((rows, n_bands), dtype=torch.int32, device=dev)
+    misc = torch.empty((rows, 5), dtype=torch.int32, device=dev)
+    if rows:
+        bands = (ctypes.c_int32 * n_bands)(*(int(n) for n in n_lines))
+        _launch("huffman_walk", dev, _ptr(words), _ptr(lut["l1"]),
+                _ptr(lut["l1b"]), _ptr(lut["l2"]), bands, _ptr(code),
+                _ptr(basf), _ptr(soff), _ptr(misc), rows, words.shape[1],
+                n_bands, total, lut["l1"].shape[0], lut["l2"].shape[1],
+                int(n_scale_bits), int(n_mant_size_bits),
+                int(n_table_id_bits))
+    return code, basf, soff, misc
+
+
+def huffman_walk_plain(words, lut, n_lines, n_scale_bits: int,
+                       n_mant_size_bits: int, n_table_id_bits: int):
+    """Plain version of huffman_walk: all rows walk in lockstep, one step
+    per line, in int64.  A band that no row allocates bits to moves no
+    cursor and is skipped."""
+    _walk_check(words, lut, n_lines, n_scale_bits, n_mant_size_bits,
+                n_table_id_bits)
+    dev = words.device
+    rows, n_w = words.shape
+    bands = [int(n) for n in n_lines]
+    w = torch.cat([words.long() & _MASK32,
+                   torch.zeros(rows, 1, dtype=torch.long, device=dev)], 1)
+    l1, l1b, l2 = (lut[k].long() & _MASK32 for k in ("l1", "l1b", "l2"))
+    n_tab = l1.shape[0]
+
+    def word(i):        # out-of-row words read the zero column
+        i = torch.where((i >= 0) & (i < n_w), i, n_w)
+        return torch.gather(w, 1, i[:, None])[:, 0]
+
+    def peek(off):      # the 32 bits at bit offset off, MSB-aligned
+        w0, sh = off >> 5, off & 31
+        return ((word(w0) << sh) & _MASK32) | (word(w0 + 1) >> (32 - sh))
+
+    def read(off, n: int):
+        return peek(off) >> (32 - n) if n > 0 else torch.zeros_like(off), \
+            off + n
+
+    off = torch.zeros(rows, dtype=torch.long, device=dev)
+    overall, off = read(off, n_scale_bits)
+    tid, off = read(off, n_table_id_bits)
+    t = torch.clamp(tid, 1, n_tab) - 1
+    bad = tid != t + 1
+    code = torch.zeros((rows, sum(bands)), dtype=torch.long, device=dev)
+    basf = torch.zeros((rows, len(bands)), dtype=torch.long, device=dev)
+    soff = torch.zeros_like(basf)
+    line = 0
+    for b, nl in enumerate(bands):
+        ba_raw, off = read(off, n_mant_size_bits)
+        sf, off = read(off, n_scale_bits)
+        basf[:, b] = ba_raw | (sf << 8)
+        soff[:, b] = off
+        ba = torch.where(ba_raw > 0, ba_raw + 1, 0)              # Q6
+        active = ba > 0
+        off = off + torch.where(active, nl, 0)                   # sign bits
+        if rows and bool(active.any()):
+            for i in range(nl):
+                pk = peek(off)
+                e1 = l1[t, pk >> (32 - WALK_ROOT_BITS)]
+                b2 = l1b[t, e1 & 0x7F]
+                tail = ((pk << WALK_ROOT_BITS) & _MASK32) >> (32 - (b2 & 15))
+                e = torch.where(e1 >= 2 ** 31, l2[t, (b2 >> 4) + tail], e1)
+                ln = e & 31
+                esc = (e & 0x20) > 0
+                raw = peek(off + ln) >> (32 - ba)
+                val = torch.where(esc, raw, (e >> 6) & 0x7FFF)
+                code[:, line + i] = torch.where(active, val, 0)
+                bad = bad | (active & (ln == 0))
+                off = off + torch.where(active,
+                                        ln + torch.where(esc, ba, 0), 0)
+        line += nl
+    misc = torch.stack([overall, tid, bad.long(), off, off + len(bands)], 1)
+    return tuple(u32_as_i32(a & _MASK32) for a in (code, basf, soff, misc))
+
+
+# -- K6 spread_maskers -------------------------------------------------------
+
+def spread_maskers(mspl: torch.Tensor, lev: torch.Tensor, bark: torch.Tensor,
+                   valid: torch.Tensor, drop_db: torch.Tensor,
+                   zvec: torch.Tensor) -> torch.Tensor:
+    """Masking-intensity accumulation over compacted masker slots, both
+    slopes of the spreading function.
+
+    mspl/lev/bark/valid: f32[B, K] slot SPL, upslope coefficient times
+    max(SPL - 40, 0), bark and 0/1 validity; drop_db: f32[B] tonal drop;
+    zvec: f32[L] line barks.  Returns f32[B, L]: the sum over valid slots of
+    10^((mspl - drop - 27 on + [dz >= 0] lev on - 96) / 10) with
+    dz = zvec[l] - bark and on = max(|dz| - 0.5, 0)."""
+    dev = mspl.device
+    for name, a in (("mspl", mspl), ("lev", lev), ("bark", bark),
+                    ("valid", valid)):
+        _check(name, a, torch.float32, 2, dev)
+    _check("drop_db", drop_db, torch.float32, 1, dev)
+    _check("zvec", zvec, torch.float32, 1, dev)
+    if (not mspl.shape == lev.shape == bark.shape == valid.shape
+            or drop_db.shape[0] != mspl.shape[0]):
+        raise ValueError("spread_maskers: shapes disagree")
+    if _on_cpu(dev):
+        return spread_maskers_plain(mspl, lev, bark, valid, drop_db, zvec)
+    rows, k = mspl.shape
+    if k > 4096:
+        raise ValueError("spread_maskers kernel: at most 4096 slots")
+    out = torch.empty((rows, zvec.shape[0]), dtype=torch.float32, device=dev)
+    if out.numel():
+        _launch("spread_maskers", dev, _ptr(mspl), _ptr(lev), _ptr(bark),
+                _ptr(valid), _ptr(drop_db), _ptr(zvec), _ptr(out), rows, k,
+                zvec.shape[0])
+    return out
+
+
+def spread_maskers_plain(mspl, lev, bark, valid, drop_db, zvec,
+                         chunk: int = 16) -> torch.Tensor:
+    """Plain version of spread_maskers: the one_chunk expression of
+    pactpu/ops/psycho.py:286-295, `chunk` rows at a time (a dense [B, K, L]
+    intermediate would be 6.5 GB at B = 3072, K = 513)."""
+    out = torch.empty((mspl.shape[0], zvec.shape[0]), dtype=torch.float32,
+                      device=mspl.device)
+    for s in range(0, mspl.shape[0], chunk):
+        c = slice(s, s + chunk)
+        dz = zvec[None, None, :] - bark[c, :, None]          # [c, K, L]
+        adz = torch.abs(dz)
+        on = torch.where(adz > 0.5, adz - 0.5, 0.0)
+        s_db = (mspl[c, :, None] - drop_db[c, None, None] - 27.0 * on
+                + torch.where(dz >= 0.0, lev[c, :, None] * on, 0.0))
+        contrib = torch.exp2(_LOG2_10_OVER_10 * (s_db - 96.0)) \
+            * valid[c, :, None]
+        out[c] = contrib.sum(1)
     return out

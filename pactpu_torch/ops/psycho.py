@@ -11,6 +11,13 @@ dependent upslope is kernel K4 (pactpu_torch.ops.kernels.spread_maskers_up).
 Six masked-threshold variants per stereo block (L, R, M, S and the two
 no-drop MLD variants, psychoac.py:506-682) run as one batch.
 
+The alternative peak pickers (peak_mode "para" and "weighted", reference
+baselines/aidan/psychoac.py:105-189) place maskers between bins, so their
+barks are data; they take the compact form of the masking sum
+(pactpu.ops.psycho.masked_threshold, psycho.py:274-309): the peaks are
+compacted exactly into K top-k slots and the full spreading function of
+every slot is summed by kernel K6 (pactpu_torch.ops.kernels.spread_maskers).
+
 Reference quirks reproduced as in pactpu: the Q3/Q4 integer frequency grid
 of the masker bins, the Q5 empty SPL window for bins < 3, and the Q2 window
 compounding (inputs carry the window state the reference mutated into
@@ -25,6 +32,7 @@ import numpy as np
 import torch
 
 from pactpu_torch.ops import kernels
+from pactpu_torch.ops.windows import hann_window
 
 # SPL floor constants (reference codec/psychoac.py:15-42)
 _I_FLOOR = 10.0 ** ((-30.0 - 96.0) / 10.0)
@@ -145,6 +153,121 @@ def masked_threshold(x: torch.Tensor, drop_db: torch.Tensor,
     return threshold_from_maskers(mspl, peak, drop_db, psy)
 
 
+def _bark(f: torch.Tensor) -> torch.Tensor:
+    khz = f / 1000.0
+    return 13.0 * torch.atan(0.76 * khz) + 3.5 * torch.atan((khz / 7.5) ** 2)
+
+
+def aidan_peaks(x: torch.Tensor, fs: int, mode: str, hann: torch.Tensor):
+    """The alternative peak pickers as fixed-shape masker slots
+    (pactpu.ops.psycho.aidan_peaks; reference baselines/aidan/psychoac.py:
+    105-189 FindPeaksPara/FindPeaks, spectrum and keep-set semantics from
+    getMaskedThreshold :236-262).
+
+    x: f32[B, N] time blocks (one Hann window `hann` f32[N] is applied
+    here).  The dB spectrum is the full N-point FFT normalized by the Hann
+    window power; peaks are strict interior local maxima of the floored dB
+    values, and only the first half of the peak list survives (the
+    reference's `allPeaks[0:len(allPeaks)/2]` floor quirk standing in for
+    positive-frequency selection).  An empty list yields the reference's
+    dummy masker at f = 0, SPL = 0 in slot 0.
+
+    mode "para": parabolic interpolation on dB values, p = (a - c) /
+    (2 (a - 2b + c)), height = b - (a - c) p / 4.  mode "weighted":
+    intensity-weighted bin centroid, height = SPL(Ia + Ib + Ic).
+
+    Returns (height f32[B, N], bark f32[B, N], keep bool[B, N]): masker
+    SPL, bark of the interpolated masker frequency and the slot mask."""
+    n = x.shape[-1]
+    hann64 = np.asarray(hann_window(n), np.float64)
+    w2hann = float(np.mean(hann64 * hann64))
+    spec = torch.fft.fft(x * hann)
+    p2 = spec.real ** 2 + spec.imag ** 2
+    xspl = spl((4.0 / (float(n) ** 2 * w2hann)) * p2)     # dB, floored
+
+    mid = xspl[..., 1:-1]
+    mask = torch.nn.functional.pad(
+        (mid > xspl[..., :-2]) & (mid > xspl[..., 2:]), (1, 1))
+    cnt = torch.cumsum(mask.to(torch.int32), dim=-1)
+    total = cnt[..., -1:]
+    keep = mask & (cnt <= total // 2)                     # first-half quirk
+
+    idx = torch.arange(n, dtype=x.dtype, device=x.device)
+    a = torch.roll(xspl, 1, dims=-1)
+    b = xspl
+    c = torch.roll(xspl, -1, dims=-1)
+    if mode == "para":
+        denom = a - 2.0 * b + c                           # < 0 at a strict max
+        p = 0.5 * (a - c) / torch.where(denom != 0.0, denom, 1.0)
+        loc = idx + p
+        height = b - 0.25 * (a - c) * p
+    elif mode == "weighted":
+        ia, ib, ic = (torch.exp2(_LOG2_10_OVER_10 * (v - 96.0))
+                      for v in (a, b, c))
+        loc = (ia * (idx - 1.0) + ib * idx + ic * (idx + 1.0)) / (ia + ib + ic)
+        height = spl(ia + ib + ic)
+    else:
+        raise ValueError(f"unknown aidan peak mode {mode!r}")
+
+    # the empty-list dummy masker sits in slot 0 with height and bark 0
+    dummy = (total == 0) & (torch.arange(n, device=x.device) == 0)
+    # non-kept slots are zeroed: their a/b/c come from wrapped neighbours
+    # and can overflow the (masked-out) spreading exponential into inf
+    height = torch.where(keep, height, 0.0)
+    loc = torch.where(keep, loc, 0.0)
+    return height, _bark(loc * (float(fs) / float(n))), keep | dummy
+
+
+def compact_slots(mspl: torch.Tensor, peak: torch.Tensor, bark,
+                  psy: dict, up_coef: float):
+    """Exact top-k compaction of the peak slots into K masker slots, the
+    inputs of kernel K6 (pactpu.ops.psycho.masked_threshold,
+    psycho.py:227-235, 274-283).
+
+    mspl f32[B, M] slot SPLs, peak bool[B, M] slot mask, bark f32[B, M]
+    per-slot barks (the aidan pickers, K = M // 4 + 1: strict maxima are
+    not adjacent and the first-half quirk halves them again, +1 for the
+    dummy) or None for the reference peaks on the static bin grid
+    (M = N / 2 bins, K = M // 2).  Returns (mspl_k, lev_k, bark_k, valid),
+    each f32[B, K]: lev_k = up_coef max(mspl_k - 40, 0), valid 0/1."""
+    m = mspl.shape[-1]
+    k = m // 4 + 1 if bark is not None else m // 2
+    key = torch.where(peak, torch.arange(m, device=mspl.device), -1)
+    idx = torch.topk(key, k, dim=-1).values
+    safe = torch.clamp(idx, min=0)
+    mspl_k = torch.gather(mspl, -1, safe)
+    lev_k = up_coef * torch.clamp(mspl_k - 40.0, min=0.0)
+    bark_k = (psy["bin_bark"][safe] if bark is None
+              else torch.gather(bark, -1, safe))
+    return mspl_k, lev_k, bark_k.contiguous(), (idx >= 0).to(mspl.dtype)
+
+
+def compact_threshold(mspl: torch.Tensor, peak: torch.Tensor, bark,
+                      drop_db: torch.Tensor, psy: dict,
+                      up_coef: float) -> torch.Tensor:
+    """Masked threshold from masker slots through the compact form
+    (pactpu.ops.psycho.masked_threshold, psycho.py:274-309): compact_slots,
+    then kernel K6 sums the spreading function of the K slots over the
+    lines, plus the threshold in quiet."""
+    total = kernels.spread_maskers(
+        *compact_slots(mspl, peak, bark, psy, up_coef),
+        drop_db.contiguous(), psy["zvec"])
+    return spl(psy["quiet_i"][None] + total)
+
+
+def threshold_for_mode(x: torch.Tensor, drop_db: torch.Tensor, psy: dict,
+                       fs: int, peak_mode: str) -> torch.Tensor:
+    """Masked thresholds of windowed blocks x f32[B, N] by peak-picker mode
+    (pactpu.ops.psycho._threshold_for_mode): "ref" = the master model's
+    peaks on the dense path (`nonup` product + K4, upslope 0.367);
+    "para"/"weighted" = the aidan pickers on the compact path (K6) with
+    aidan's 0.37 upslope coefficient (baselines/aidan/psychoac.py:97)."""
+    if peak_mode == "ref":
+        return masked_threshold(x, drop_db, psy)
+    height, bark, keep = aidan_peaks(x, fs, peak_mode, psy["hann"])
+    return compact_threshold(height, keep, bark, drop_db, psy, up_coef=0.37)
+
+
 def layout_tensors(layout, device) -> dict:
     """Device tables of a BandLayout for the band reductions: `seg` (band
     of each line), `band_lines` [bands, widest] (each band's lines, padded
@@ -210,7 +333,8 @@ def six_variants(sine_windowed: torch.Tensor, hann: torch.Tensor):
 
 
 def stereo_smr_pair(sine_windowed: torch.Tensor, scaled_lines: torch.Tensor,
-                    overall_scale: torch.Tensor, psy: dict, lay: dict):
+                    overall_scale: torch.Tensor, psy: dict, lay: dict,
+                    fs: int = 44100, peak_mode: str = "ref"):
     """Per-band SMRs of BOTH stereo codings for a batch of blocks
     (reference getStereoMaskThreshold, codec/psychoac.py:506-682, up to the
     per-band L/R-vs-M/S selection).
@@ -225,7 +349,8 @@ def stereo_smr_pair(sine_windowed: torch.Tensor, scaled_lines: torch.Tensor,
     scale and S uses channel 1's."""
     b, _, n = sine_windowed.shape
     blocks, drops = six_variants(sine_windowed, psy["hann"])
-    thr = masked_threshold(blocks, drops, psy).reshape(b, 6, n // 2)
+    thr = threshold_for_mode(blocks, drops, psy, fs, peak_mode).reshape(
+        b, 6, n // 2)
     bthr_l, bthr_r, bthr_m, bthr_s, bthr_m_mld, bthr_s_mld = thr.unbind(1)
 
     ms_lines = torch.stack([(scaled_lines[:, 0] + scaled_lines[:, 1]) * 0.5,
@@ -252,12 +377,13 @@ def select_coding(smr_lr, smr_ms, scaled_lines, ms_lines, lrms, lay):
     return smr, torch.where(line_lrms, ms_lines, scaled_lines)
 
 
-def stereo_smrs(sine_windowed, scaled_lines, overall_scale, lrms, psy, lay):
+def stereo_smrs(sine_windowed, scaled_lines, overall_scale, lrms, psy, lay,
+                fs: int = 44100, peak_mode: str = "ref"):
     """Stereo SMRs + channel-mixed MDCT lines: stereo_smr_pair followed by
     the per-band LRMS selection.  Returns (smr f32[B, 2, bands],
     mixed f32[B, 2, N/2])."""
     smr_lr, smr_ms, ms_lines = stereo_smr_pair(
-        sine_windowed, scaled_lines, overall_scale, psy, lay)
+        sine_windowed, scaled_lines, overall_scale, psy, lay, fs, peak_mode)
     return select_coding(smr_lr, smr_ms, scaled_lines, ms_lines, lrms, lay)
 
 

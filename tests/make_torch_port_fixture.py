@@ -1,21 +1,32 @@
-"""Write tests/data/torch_port_fixture.npz: a stream the JAX package
-encodes on the CPU, for the PyTorch port to decode and re-encode.
+"""Write tests/data/torch_port_fixture.npz and
+tests/data/torch_port_fixture_weighted.npz: streams the JAX package encodes
+on the CPU, for the PyTorch port to decode and re-encode.
 
     env JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py
 
-The file holds the seed and recipe of a 1.0 s stereo tone+noise input, the
-input PCM, the stream `pactpu` encodes from it (reservoir rate mode,
-default config) and `pactpu`'s decoded PCM.  tests/test_torch_fixture.py
-rebuilds it and asserts that it equals the committed file; chip_smoke.py
-reads it on the GPU.
+Each file holds the seed and recipe of a 1.0 s stereo tone+noise input
+(45 blocks), the input PCM, the stream `pactpu` encodes from it (reservoir
+rate mode; the default config, and peak_mode="weighted" for the second
+file) and `pactpu`'s decoded PCM.  tests/test_torch_fixture.py rebuilds
+them and asserts that they equal the committed files; chip_smoke.py reads
+them on the GPU.
+
+The aidan peak modes of `pactpu` carry an argument-order fault:
+`psycho._threshold_for_mode` hands `aidan_peaks`' (height, bark, keep) to
+`masked_threshold`, which unpacks (mspl, peak, bark), so every masker lands
+at 1 bark.  The port implements what both docstrings describe, and
+everything here that runs `pactpu` in such a mode does so inside
+`pactpu_maskers_in_order()`, which repairs the order for the duration.
 """
 
+import contextlib
 import os
 
 import numpy as np
 
-PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                    "torch_port_fixture.npz")
+_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+PATH = os.path.join(_DATA, "torch_port_fixture.npz")
+PATH_WEIGHTED = os.path.join(_DATA, "torch_port_fixture_weighted.npz")
 SEED = 7
 SECONDS = 1.0
 RECIPE = ("int16 clip of [m, 0.8 m + o] + N(0, 150^2) noise per channel; "
@@ -38,10 +49,45 @@ def fixture_pcm(seed: int = SEED, seconds: float = SECONDS) -> np.ndarray:
     return np.clip(sig, -32767, 32767).astype(np.int16)
 
 
-def build_fixture() -> dict:
+@contextlib.contextmanager
+def pactpu_maskers_in_order():
+    """Inside, pactpu.ops.psycho.aidan_peaks returns (height, keep, bark),
+    the order masked_threshold(maskers=...) unpacks, and the engine's
+    cached analysis programs are traced anew (and dropped again on
+    leaving, so that nothing outside sees the repaired order)."""
+    from pactpu.codec import engine as je
+    from pactpu.ops import psycho as jpsy
+    real = jpsy.aidan_peaks
+
+    def in_order(x, fs, mode="weighted"):
+        height, bark, keep = real(x, fs, mode)
+        return height, keep, bark
+
+    def drop_traces():
+        for fn in (je._encode_fn, je._chunk_analyze_fn, je._chunk_encode_fn):
+            fn.cache_clear()
+
+    drop_traces()
+    jpsy.aidan_peaks = in_order
+    try:
+        yield
+    finally:
+        jpsy.aidan_peaks = real
+        drop_traces()
+
+
+def build_fixture(peak_mode: str = "ref") -> dict:
+    if peak_mode != "ref":
+        with pactpu_maskers_in_order():
+            return _build_fixture(peak_mode)
+    return _build_fixture(peak_mode)
+
+
+def _build_fixture(peak_mode: str) -> dict:
     from pactpu.codec.engine import Engine
+    from pactpu.utils.config import CodecConfig
     pcm = fixture_pcm()
-    eng = Engine(rate_mode="reservoir")
+    eng = Engine(cfg=CodecConfig(peak_mode=peak_mode), rate_mode="reservoir")
     stream = eng.encode(pcm)
     _, decoded = eng.decode(stream)
     return dict(seed=np.int64(SEED), seconds=np.float64(SECONDS),
@@ -51,6 +97,7 @@ def build_fixture() -> dict:
 
 if __name__ == "__main__":
     import sys
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(PATH))))
-    np.savez_compressed(PATH, **build_fixture())
-    print(PATH, os.path.getsize(PATH), "bytes")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(_DATA)))
+    for path, mode in ((PATH, "ref"), (PATH_WEIGHTED, "weighted")):
+        np.savez_compressed(path, **build_fixture(mode))
+        print(path, os.path.getsize(path), "bytes")

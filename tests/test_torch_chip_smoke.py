@@ -1,6 +1,7 @@
 """chip_smoke.py's own logic on the CPU: with no CUDA device it refuses to
-run; its main-path, fixture and throughput phases pass on the CPU with the
-kernels' plain versions on short files (phase 1 needs the card)."""
+run; its main-path, fixture, throughput, device-parse and aidan phases pass
+on the CPU with the kernels' plain versions on short files (phase 1 needs
+the card)."""
 
 import json
 
@@ -26,17 +27,50 @@ def test_synth_is_seeded():
     assert not np.array_equal(a, chip_smoke.synth(0.2, 4))
 
 
+KERNELS = {"extract_codes", "water_fill", "pack_words", "spread_maskers_up",
+           "huffman_walk", "spread_maskers"}
+
+
 def test_phases_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "DEV", "cpu")
     eng = Engine(device="cpu", chunk_blocks=16)
+    eng_dev = Engine(device="cpu", chunk_blocks=16, decode_parse="device")
     files = [chip_smoke.synth(0.5, 1), chip_smoke.synth(0.25, 2)]
-    launches = chip_smoke.phase2(torch, eng, files)
-    assert set(launches) == {"extract_codes", "water_fill", "pack_words",
-                             "spread_maskers_up"}
+    launches, streams, host_pcm = chip_smoke.phase2(torch, eng, files)
+    assert set(launches) == KERNELS
+    assert len(streams) == len(host_pcm) == 2
     chip_smoke.phase3(eng)
-    chip_smoke.phase4(torch, eng, files[1:])
+    chip_smoke.phase4(torch, eng, eng_dev, files[1:], streams[1:])
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert [x["phase"] for x in lines] == ["2-main-path", "3-fixture",
                                            "4-throughput"]
     assert lines[0]["blocks"] == [23, 12]
     assert lines[1]["max_lsb"] <= 1
+    assert len(lines[2]["decode_device_parse_blocks_per_s"]) == 6
+
+
+def test_new_phases_on_cpu(monkeypatch, capsys):
+    """Phase 5 (device-parse decode) and phase 6 (aidan modes)."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    eng = Engine(device="cpu", chunk_blocks=16)
+    eng_dev = Engine(device="cpu", chunk_blocks=16, decode_parse="device")
+    pcm = chip_smoke.synth(0.3, 3)
+    stream = eng.encode(pcm)
+    assert set(chip_smoke.phase5(torch, eng_dev, [stream],
+                                 [eng.decode(stream)[1]])) == KERNELS
+    chip_smoke.phase6(torch, lambda **kw: Engine(
+        device="cpu", chunk_blocks=16, **kw), pcm)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["phase"] for x in lines] == [
+        "5-device-parse", "6-aidan", "6-aidan", "6-aidan-fixture"]
+    assert "channel-block 0" in lines[0]["corrupt"]
+    assert lines[0]["fixture_max_lsb"] <= 1
+    assert [x["mode"] for x in lines[1:3]] == ["para", "weighted"]
+    assert lines[3]["max_lsb"] <= 1
+
+
+def test_kernel_tables_agree():
+    from pactpu_torch.ops import kernels as K
+    assert set(chip_smoke.REPLACES) == set(chip_smoke.PATH_OF) == KERNELS
+    assert set(K.LAUNCHES) == set(K._C_FUNCS) == KERNELS
+    assert {src for src, _ in chip_smoke.REPLACES.values()} == set(K.SOURCES)

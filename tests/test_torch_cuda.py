@@ -12,7 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from pactpu_torch.ops import huffman_walk as hw
 from pactpu_torch.ops import kernels as K
+from pactpu_torch.ops.huffman import load_tables
+from pactpu_torch.utils.config import CodecConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +96,152 @@ def test_spread_up_edges(cuda, rows, k, l):
     plain = K.spread_maskers_up_plain(*args)
     torch.cuda.synchronize()
     assert (plain > 0).any()
+    torch.testing.assert_close(out, plain, rtol=1e-5, atol=0)
+
+
+def _walk_both(cuda, words: np.ndarray, n_mant_size_bits: int = 4):
+    cfg = CodecConfig()
+    args = (torch.from_numpy(words.view(np.int32)).to(cuda),
+            hw.device_walk_lut(None, cuda), cfg.band_layout.n_lines,
+            cfg.n_scale_bits, n_mant_size_bits, cfg.n_table_id_bits)
+    rec = K.huffman_walk(*args)
+    torch.cuda.synchronize()
+    plain = K.huffman_walk_plain(*args)
+    for name, a, b in zip(("code", "basf", "soff", "misc"), rec, plain):
+        assert torch.equal(a, b), name
+    return rec
+
+
+@pytest.mark.parametrize("rows,n_words,size_bits", [
+    (1, 32, 4), (33, 32, 4), (70, 512, 4), (70, 1024, 4), (33, 32, 5),
+    (70, 1024, 5)])
+def test_huffman_walk_garbage_rows(cuda, rows, n_words, size_bits):
+    """Random words: every table id, dead codes, cursors that run far past
+    a 32-word row (words there read as zero), a last block of threads that
+    is not full; rows of 1,024 words; 5 mantissa-size bits (allocations up
+    to 32 bits, raw escape mantissas that fill an int32)."""
+    rng = np.random.default_rng(rows)
+    words = rng.integers(0, 2 ** 32, (rows, n_words), dtype=np.uint64).astype(
+        np.uint32)
+    rec = _walk_both(cuda, words, size_bits)
+    if size_bits == 5:
+        assert int((rec[1] & 0xFF).max()) == 31           # ba = 32 occurs
+    if n_words == 32 and rows > 1:
+        assert int(rec[3][:, 4].max()) > 32 * n_words     # ran past the row
+
+
+def test_huffman_walk_all_escape_rows(cuda):
+    """Rows whose every transmitted line is an escape code followed by a
+    raw mantissa, one row per table: 16-bit mantissas in band 0 and 2-bit
+    mantissas after."""
+    cfg = CodecConfig()
+    n_lines = cfg.band_layout.n_lines
+    _, _, esc_len, esc_code = load_tables()
+    rng = np.random.default_rng(5)
+    words = np.zeros((len(esc_len), 512), np.uint32)
+    want = []
+    for t in range(len(esc_len)):
+        bits, vals = [], []
+
+        def put(v, n):
+            bits.extend((int(v) >> (n - 1 - i)) & 1 for i in range(n))
+
+        put(3, 4)
+        put(t + 1, 4)
+        for b, nl in enumerate(n_lines):
+            ba = 16 if b == 0 else 2 if b < 14 else 0
+            put(ba - 1 if ba else 0, 4)
+            put(5, 4)
+            if ba:
+                put(0, nl)                               # sign bits
+                for _ in range(nl):
+                    v = int(rng.integers(0, 1 << ba))
+                    put(esc_code[t], int(esc_len[t]))
+                    put(v, ba)
+                    vals.append(v)
+        assert len(bits) <= 32 * 512
+        bits += [0] * (-len(bits) % 32)
+        packed = np.packbits(np.asarray(bits, np.uint8)).view(">u4")
+        words[t, :packed.shape[0]] = packed
+        want.append(vals)
+    rec = _walk_both(cuda, words)
+    code = rec[0].cpu().numpy()
+    for t, vals in enumerate(want):
+        np.testing.assert_array_equal(code[t, :len(vals)], vals)
+        assert not code[t, len(vals):].any()
+    assert not rec[3][:, 2].any()                        # no row is bad
+
+
+def test_huffman_walk_32_bit_escapes(cuda):
+    """n_mant_size_bits = 5 on well-formed rows: band 0 allocates 32 bits
+    and every line is an escape code followed by a raw 32-bit mantissa, so
+    one step advances up to 63 bits and the decoded value wraps in int32
+    as the plain version's does."""
+    cfg = CodecConfig()
+    n_lines = cfg.band_layout.n_lines
+    _, _, esc_len, esc_code = load_tables()
+    rng = np.random.default_rng(6)
+    words = np.zeros((len(esc_len), 64), np.uint32)
+    want = []
+    for t in range(len(esc_len)):
+        bits = []
+
+        def put(v, n):
+            bits.extend((int(v) >> (n - 1 - i)) & 1 for i in range(n))
+
+        put(3, 4)
+        put(t + 1, 4)
+        vals = [int(v) for v in rng.integers(0, 1 << 32, n_lines[0])]
+        vals[0] = 0xFFFFFFFF
+        for b, nl in enumerate(n_lines):
+            put(31 if b == 0 else 0, 5)
+            put(5, 4)
+            if b == 0:
+                put(0, nl)                               # sign bits
+                for v in vals:
+                    put(esc_code[t], int(esc_len[t]))
+                    put(v, 32)
+        assert len(bits) <= 32 * words.shape[1]
+        bits += [0] * (-len(bits) % 32)
+        packed = np.packbits(np.asarray(bits, np.uint8)).view(">u4")
+        words[t, :packed.shape[0]] = packed
+        want.append(np.asarray(vals, np.uint32).view(np.int32))
+    rec = _walk_both(cuda, words, 5)
+    code = rec[0].cpu().numpy()
+    for t, vals in enumerate(want):
+        np.testing.assert_array_equal(code[t, :len(vals)], vals)
+        assert not code[t, len(vals):].any()
+    assert not rec[3][:, 2].any()                        # no row is bad
+
+
+def test_huffman_walk_refuses_six_size_bits(cuda):
+    words = torch.zeros((2, 32), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        K.huffman_walk(words, hw.device_walk_lut(None, cuda),
+                       CodecConfig().band_layout.n_lines, 4, 6, 4)
+
+
+@pytest.mark.parametrize("rows,k,l", [(3, 1, 1024), (17, 513, 1024),
+                                      (5, 100, 300)])
+def test_spread_maskers_edges(cuda, rows, k, l):
+    """One slot, the aidan path's 513 slots, a ragged last line tile; a
+    row with every slot invalid sums to zero; rtol 1e-5 (the terms are
+    equal, the order of the slot sum is not)."""
+    rng = np.random.default_rng(k)
+    zvec = torch.from_numpy(np.sort(rng.uniform(0, 25, l)).astype(np.float32))
+    mspl = rng.uniform(-30, 100, (rows, k)).astype(np.float32)
+    lev = (0.37 * np.maximum(mspl - 40, 0)).astype(np.float32)
+    bark = rng.uniform(0, 25, (rows, k)).astype(np.float32)
+    valid = (rng.random((rows, k)) < 0.5).astype(np.float32)
+    valid[0] = 0
+    valid[-1] = 1
+    drop = rng.choice([0.0, 15.0], rows).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (mspl, lev, bark, valid, drop)] + [zvec.to(cuda)]
+    out = K.spread_maskers(*args)
+    plain = K.spread_maskers_plain(*args)
+    torch.cuda.synchronize()
+    assert not out[0].any() and bool((out[-1] > 0).any())
     torch.testing.assert_close(out, plain, rtol=1e-5, atol=0)
 
 

@@ -2,9 +2,12 @@
 """Where the time goes on the PyTorch port's main path, on one CUDA GPU.
 
     python3 tools/torch_profile.py [--seconds 60] [--out DIR]
+                                   [--decode-parse host|device]
+                                   [--peak-mode ref|para|weighted]
 
 Encodes and decodes one synthetic stereo file (chip_smoke.synth) with
-Engine(device="cuda", rate_mode="reservoir") and reports, as JSON lines:
+Engine(device="cuda", rate_mode="reservoir") on the chosen decode parse
+route and peak-picker mode, and reports, as JSON lines:
 
 - "stages": host-clock seconds of each stage of one serial encode +
   decode, with a device synchronize after each stage (so a stage's own
@@ -33,6 +36,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seconds", type=float, default=60.0)
     ap.add_argument("--out", help="directory for trace.json")
+    ap.add_argument("--decode-parse", default="host",
+                    choices=("host", "device"))
+    ap.add_argument("--peak-mode", default="ref",
+                    choices=("ref", "para", "weighted"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -41,10 +48,11 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import n_blocks, synth
-    from pactpu_torch import Engine
+    from pactpu_torch import CodecConfig, Engine
 
     pcm = synth(args.seconds, 4)
-    eng = Engine(device="cuda", rate_mode="reservoir")
+    eng = Engine(device="cuda", cfg=CodecConfig(peak_mode=args.peak_mode),
+                 rate_mode="reservoir", decode_parse=args.decode_parse)
     eng.decode(eng.encode(pcm))                       # warm
     torch.cuda.synchronize()
 
@@ -61,12 +69,17 @@ def main() -> int:
     payload = stage("encode/download+assemble", eng._finish_encode, st)
     from pactpu_torch.codec.header import write_header
     stream = write_header(eng.cfg, pcm.shape[0])[0] + payload
-    staged = stage("decode/native-parse+repack", eng._decode_staging,
-                   stream)
-    d = stage("decode/upload+synthesis", eng._decode_launch, staged)
+    staging = ("decode/native-parse+repack" if args.decode_parse == "host"
+               else "decode/frame-rows")
+    launch = ("decode/upload+synthesis" if args.decode_parse == "host"
+              else "decode/upload+walk+synthesis")
+    staged = stage(staging, eng._decode_staging, stream)
+    d = stage(launch, eng._decode_launch, staged)
     stage("decode/download", eng._decode_finish, *d)
     blocks = n_blocks(pcm)
-    print(json.dumps({"stages": stages, "blocks": blocks,
+    print(json.dumps({"decode_parse": args.decode_parse,
+                      "peak_mode": args.peak_mode,
+                      "stages": stages, "blocks": blocks,
                       "total_s": round(sum(stages.values()), 6)}))
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -85,7 +98,7 @@ def main() -> int:
                                 + ev.time_range.elapsed_us())
     busy = sum(kernels.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
-    print(json.dumps({"device": {
+    print(json.dumps({"decode_parse": args.decode_parse, "device": {
         "wall_s": round(wall, 6), "kernel_s": round(busy, 6),
         "busy_share": round(busy / wall, 4),
         "idle_share": round(1 - busy / wall, 4), "blocks": blocks,
