@@ -10,10 +10,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
    native bitstream runtime (g++);
 1. kernel parity at their paths' shapes: K1-K3 and K5 bit for bit against
    their plain PyTorch versions, K4 and K6 within a stated tolerance, each
-   timed (median of 20 runs, CUDA events) beside its plain version, its
+   timed (median of 20 runs, CUDA events; "ms" around one call of the
+   wrapper, "device_ms" the kernel alone) beside its plain version, its
    bound on this card (bytes over the memory rate or operations over the
    float32 rate, whichever is larger) and, where one exists, the PyTorch
-   call that computes the same function;
+   call that computes the same function; K4 and K2 also on the edge inputs
+   of k4_edge and k2_edge;
 2. the main path: Engine(device="cuda", rate_mode="reservoir") on four
    synthetic stereo files (three of 10 s, one of 60 s), serial encode ->
    decode and roundtrip_many, which must agree byte for byte and sample
@@ -59,7 +61,11 @@ FS = 44100
 # (the port on the CPU), as the fixture does in the JAX package (9.7 dB).
 # A broken decode scores 0 dB or less.
 SNR_FLOOR_DB = 3.0
-K4_RTOL = 1e-5               # intensity sums differ only in summation order
+# K4: every term has the plain version's bits (the same unfused float32
+# operations, exp2f or its bare instruction where the two agree); the sum
+# runs in masker order with a fused multiply-add, the plain version's as a
+# tree: a few float32 ulp
+K4_RTOL = 1e-5
 K4_SPL_ATOL_DB = 1e-3
 K6_RTOL = 1e-5               # as K4: the terms are equal, the sum's order not
 K6_SPL_ATOL_DB = 1e-3
@@ -153,6 +159,27 @@ def median_ms(torch, fn, runs: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, runs: int = 20) -> float:
+    """Median time on the card of what one call of fn launches, in ms: the
+    card is first given about half a millisecond of spinning, during which
+    the host enqueues the two events and fn's launches between them, so the
+    time between the events holds no wait for the host (median_ms does: a
+    wrapper's checks, allocations and launch take the host tens of
+    microseconds, more than the smaller kernels run)."""
+    fn()                                         # warm
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
 def phase0(torch) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -182,6 +209,125 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+K4_EDGES = ("no-peak", "all-peaks", "k4096", "ragged", "two-tiles",
+            "lowest-bark", "highest-bark")
+K2_EDGES = ("neg-zero", "all-tied", "pair-ties", "one-band", "32-bands",
+            "zero-budget", "to-the-cap", "max-mant-1", "nan", "dead-key")
+
+
+def k4_edge(name: str):
+    """Edge inputs of K4 spread_maskers_up as numpy arrays (iprime, mspl,
+    bark, zvec): a row with no peak, rows where every bin is a peak, 4,096
+    maskers, masker and line counts that are no multiple of 32 or of the
+    kernel's 1,024-line tile, one masker at the lowest and at the highest
+    bark."""
+    rng = np.random.default_rng(K4_EDGES.index(name))
+    rows, k, n = {"no-peak": (3, 128, 256), "all-peaks": (3, 256, 256),
+                  "k4096": (2, 4096, 1024), "ragged": (5, 37, 1000),
+                  "two-tiles": (2, 300, 1100), "lowest-bark": (2, 128, 300),
+                  "highest-bark": (2, 128, 300)}[name]
+    zvec = np.sort(rng.uniform(0, 25, n)).astype(np.float32)
+    bark = np.sort(rng.uniform(0, 25, k)).astype(np.float32)
+    mspl = rng.uniform(-30, 100, (rows, k)).astype(np.float32)
+    ip = np.where(rng.random((rows, k)) < 0.2, rng.random((rows, k)),
+                  0.0).astype(np.float32)
+    if name == "no-peak":
+        ip[1] = 0.0
+    elif name in ("all-peaks", "k4096"):
+        ip[0] = (rng.random(k) + 0.1).astype(np.float32)
+    elif name == "lowest-bark":
+        ip[:] = 0.0
+        ip[:, 0] = 1.0
+    elif name == "highest-bark":
+        ip[:] = 0.0
+        ip[:, -1] = 1.0
+    return ip, mspl, bark, zvec
+
+
+def k2_edge(name: str):
+    """Edge inputs of K2 water_fill as (total_bits, max_mant_bits, n_lines,
+    smr, lrms), numpy arrays and an int: -0.0 beside +0.0, ties, 1, 25 and
+    32 bands, zero budgets, budgets that drive every band to the cap, a cap
+    of one bit, NaN SMRs, SMRs at and below the dead bands' key -1e30."""
+    rng = np.random.default_rng(K2_EDGES.index(name))
+    n_bands = {"one-band": 1, "32-bands": 32}.get(name, 25)
+    rows = 9
+    max_mant = 1 if name == "max-mant-1" else 16
+    smr = rng.uniform(-20, 60, (rows, n_bands)).astype(np.float32)
+    lrms = rng.random((rows, n_bands)) < 0.4
+    n_lines = rng.integers(0, 60, n_bands).astype(np.int32)
+    total = rng.integers(0, 3000, rows).astype(np.int32)
+    if name == "neg-zero":
+        # float ties that an integer order would break: -0.0 ahead of +0.0
+        smr[:] = np.where(rng.random(smr.shape) < 0.5, -0.0, 0.0)
+        smr[:, 0] = -0.0
+        smr[1::2, 2::5] = 6.0
+        total[:] = rng.integers(20, 400, rows)
+    elif name == "all-tied":
+        smr[:] = 12.5
+    elif name == "pair-ties":
+        smr[:, ::2] = smr[:, 1:2]
+    elif name == "32-bands":
+        smr[::2, 16:] = smr[::2, :16]
+    elif name == "zero-budget":
+        total[:] = 0
+    elif name == "to-the-cap":
+        smr += 120.0
+        total[:] = 10 ** 6
+    elif name == "nan":
+        smr[::2, 3] = np.nan
+        smr[1] = np.nan
+        smr[3, 7] = -np.nan
+    elif name == "dead-key":
+        smr[0] = -np.inf
+        smr[1] = -2e30
+        smr[2, ::2] = -1e30
+        smr[3, 5] = -np.inf
+        smr[4, 1] = np.inf
+    return total, max_mant, n_lines, smr, lrms
+
+
+def main_path_inputs(torch, dev_tables, pcm: np.ndarray, blocks: int = 512):
+    """What one chunk of the main path hands to K4 and to K2: K4's
+    arguments from the chunk's masker levels (6 * blocks rows), and K2's
+    from its SMRs plus edge rows (zero budgets, budgets that drive bands to
+    the 16-bit cap, ties in SMR).  Also the chunk's stereo variants and
+    tonal drops, which K6's input is made from."""
+    from pactpu_torch.codec import engine as E
+    from pactpu_torch.ops import psycho
+    from pactpu_torch.ops import quantize as q
+    dev = dev_tables["win"].device
+    psy = dev_tables["psy"]
+    glob = np.zeros((2, (blocks + 1) * 1024), np.int16)
+    glob[:, 1024:] = pcm[:blocks * 1024].T
+    frames = E._overlap_frames(torch.from_numpy(glob).to(dev), 1024)
+    sw = q.pcm16_to_float(frames) * dev_tables["win"]
+    variants, drops = psycho.six_variants(sw, psy["hann"])
+    mspl, peak = psycho.masker_levels(variants, psy["hann"])
+    iprime = psycho.masker_intensity(mspl, peak, drops)
+    k4 = (iprime, mspl, psy["bin_bark"], psy["zvec"])
+    analysis = E.analyze(E.CodecConfig(), frames, dev_tables)
+    smr = analysis["smr"][:, 0].contiguous().clone()
+    lrms = analysis["lrms"].contiguous().clone()
+    total = torch.full((blocks,), 2116, dtype=torch.int32, device=dev)
+    total[:16] = 0
+    total[16:32] = 30000
+    total[32:48] = int(1e6)
+    smr[48:64] = 20.0                               # all bands tied
+    smr[64:80, ::2] = smr[64:80, 1::2].mean()       # pairwise ties
+    total[64:80] = torch.arange(16, device=dev, dtype=torch.int32) * 300
+    k2 = (total, 16, dev_tables["lay"]["n_lines"], smr, lrms)
+    return dict(k4=k4, k2=k2, variants=variants, drops=drops)
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock as nvidia-smi reports it now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
     """Each kernel against its plain version on its path's shapes (one
     512-block chunk; `stream` is the encode of `pcm`)."""
@@ -189,11 +335,10 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
     from pactpu_torch.codec import engine as E
     from pactpu_torch.ops import kernels as K
     from pactpu_torch.ops import psycho
-    from pactpu_torch.ops import quantize as q
     dev = torch.device("cuda")
     blocks = 512
     rng = np.random.default_rng(1)
-    res = {}
+    res, extra = {}, {}      # extra: beside the times, on the 1-kernel line
 
     def record(name, err, fast, plain, moved, ops, library=None,
                plain_runs=20):
@@ -201,6 +346,7 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
         these inputs need; the bound is the larger of their times."""
         t_bytes = moved / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
+        extra[name] = dict(device_ms=device_ms(torch, fast))
         res[name] = dict(
             max_abs_err=err, ms=median_ms(torch, fast),
             plain_ms=median_ms(torch, plain, plain_runs),
@@ -236,15 +382,11 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
 
     # K4 on the masker levels of one chunk (3072 rows)
     psy = dev_tables["psy"]
-    glob = np.zeros((2, (blocks + 1) * 1024), np.int16)
-    glob[:, 1024:] = pcm[:blocks * 1024].T
-    frames = E._overlap_frames(torch.from_numpy(glob).to(dev), 1024)
-    sw = q.pcm16_to_float(frames) * dev_tables["win"]
-    variants, drops = psycho.six_variants(sw, psy["hann"])
-    mspl, peak = psycho.masker_levels(variants, psy["hann"])
-    iprime = psycho.masker_intensity(mspl, peak, drops)
+    chunk = main_path_inputs(torch, dev_tables, pcm, blocks)
+    variants, drops = chunk["variants"], chunk["drops"]
+    args = chunk["k4"]
+    iprime = args[0]
     check(iprime.shape == (3072, 1024), f"K4 rows {tuple(iprime.shape)}")
-    args = (iprime, mspl, psy["bin_bark"], psy["zvec"])
     out = K.spread_maskers_up(*args)
     plain = K.spread_maskers_up_plain(*args)
     err = (out - plain).abs()
@@ -254,6 +396,12 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
     base = psy["quiet_i"][None] + torch.matmul(iprime, psy["nonup"])
     d_spl = (psycho.spl(base + out) - psycho.spl(base + plain)).abs().max()
     check(float(d_spl) <= K4_SPL_ATOL_DB, f"K4 threshold off by {d_spl} dB")
+    for name in K4_EDGES:
+        e_args = [torch.from_numpy(a).to(dev) for a in k4_edge(name)]
+        e_out = K.spread_maskers_up(*e_args)
+        e_plain = K.spread_maskers_up_plain(*e_args)
+        check(bool(((e_out - e_plain).abs() <= K4_RTOL * e_plain.abs()).all()),
+              f"K4 beyond rtol {K4_RTOL} on the edge input {name}")
     # operations: 6 per (row, peak masker, line on its upslope) triple
     reach = (psy["zvec"][None, :] - psy["bin_bark"][:, None] > 0.5).sum(1)
     triples = int(((iprime != 0).long() * reach[None, :]).sum())
@@ -261,33 +409,39 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
            lambda: K.spread_maskers_up(*args),
            lambda: K.spread_maskers_up_plain(*args),
            nbytes(*args, out), 6 * triples)
+    # beside the bound: one exp2 a triple on the special-function units,
+    # 16 a clock on each SM, at the clock nvidia-smi reports after the runs
+    clock = sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    extra["spread_maskers_up"].update(
+        exp2_count=triples, sm_clock_mhz=clock, sms=sms,
+        peaks_per_row=float((iprime != 0).sum(1).float().mean()),
+        sfu_floor_ms=triples / (sms * 16 * clock * 1e6) * 1e3)
 
-    # K2: 512 rows of a chunk's real SMRs plus edge rows: zero budget,
-    # budgets that drive bands to the 16-bit cap, ties in SMR
-    analysis = E.analyze(E.CodecConfig(), frames, dev_tables)
-    smr = analysis["smr"][:, 0].contiguous().clone()
-    lrms = analysis["lrms"].contiguous().clone()
-    total = torch.full((blocks,), 2116, dtype=torch.int32, device=dev)
-    total[:16] = 0
-    total[16:32] = 30000
-    total[32:48] = int(1e6)
-    smr[48:64] = 20.0                               # all bands tied
-    smr[64:80, ::2] = smr[64:80, 1::2].mean()       # pairwise ties
-    total[64:80] = torch.arange(16, device=dev, dtype=torch.int32) * 300
-    nl = lay["n_lines"]
-    bits, left = K.water_fill(total, 16, nl, smr, lrms)
-    pbits, pleft = K.water_fill_plain(total, 16, nl, smr, lrms)
+    # K2: 512 rows of a chunk's real SMRs plus edge rows
+    k2 = chunk["k2"]
+    bits, left = K.water_fill(*k2)
+    pbits, pleft = K.water_fill_plain(*k2)
     check(torch.equal(bits, pbits) and torch.equal(left, pleft),
           "K2 differs from its plain version")
     check(int(bits[32:48].max()) == 16, "K2 input never reaches the cap")
     check(int(bits[:16].abs().sum()) == 0, "K2 spent a zero budget")
+    for name in K2_EDGES:
+        e_args = [torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+                  else a for a in k2_edge(name)]
+        got, want = K.water_fill(*e_args), K.water_fill_plain(*e_args)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K2 differs from its plain version on the edge input {name}")
     # operations: a greedy step is an argmax and a max over the bands
     # (2 x 25 compares and as many residuals); a row takes at least one
     # step per granted bit plus one per band to retire it
     steps = int(pbits.sum()) + pbits.shape[0] * pbits.shape[1]
-    record("water_fill", 0.0, lambda: K.water_fill(total, 16, nl, smr, lrms),
-           lambda: K.water_fill_plain(total, 16, nl, smr, lrms),
-           nbytes(total, nl, smr, lrms, bits, left), 4 * 25 * steps)
+    record("water_fill", 0.0, lambda: K.water_fill(*k2),
+           lambda: K.water_fill_plain(*k2),
+           nbytes(k2[0], *k2[2:], bits, left), 4 * 25 * steps)
+    # the kernel's time is the longest row's chain of dependent steps
+    extra["water_fill"].update(
+        chain_steps_max=int(pbits.sum(1).max()) + pbits.shape[1])
 
     # K3: 1024 rows x 1148 items at n_words 256 and 968 (time at 256)
     items = 1148
@@ -415,7 +569,7 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
            nbytes(*args6, out), 11 * int(slots[3].sum()) * out.shape[1])
     torch.cuda.synchronize()
     for name, r in res.items():
-        say("1-kernel", name=name, **r)
+        say("1-kernel", name=name, **r, **extra[name])
     return res
 
 

@@ -8,66 +8,180 @@
 //                                        * (dz - 0.5) / 10),
 //   over the pairs with dz = zvec[l] - bark[k] > 0.5.
 //
-// Bound on the H100: the special-function unit.  At B = 3,072 rows per
-// chunk the pair space is 3.2 G (row, masker, line) triples, but only the
-// peaks carry a nonzero iprime (a few dozen to a few hundred of the 1,024
-// bins) and only pairs above the masker's plateau count.  Grid (row,
-// 256-line tile), one thread per line with its accumulator in a register;
-// the row's iprime and tonal level and the bark grid (3 x 4 KB) are staged
-// in shared memory, so the masker loop reads only shared memory and is the
-// same for every thread of the block (no divergence on the skips).  A
-// masker with iprime == 0 adds exactly +0.0 and is skipped; both bark
-// grids ascend, so the loop ends at the first masker whose plateau reaches
-// past the tile's last line.  The sum runs in masker order, not in the TPU
-// kernel's order, so results match the plain version to float32 rounding.
+// Bound on the H100: operations, and among them the special-function unit
+// (one exp2 per (row, peak masker, line above its plateau) triple, 16 a
+// clock an SM) and the eight or so instructions around each exp2 (one warp
+// instruction a clock a scheduler); the inputs and the output are a few
+// tens of MB.  Only the peaks carry a nonzero iprime (a
+// few hundred of the 1,024 bins), so the design does the work the inputs
+// need and no more:
+//
+// - One block a row.  Its eight warps first compact the row's nonzero
+//   maskers, in ascending order, into shared memory (warp ballots and prefix
+//   popcounts; each warp takes one contiguous eighth of the bins), storing
+//   per masker one float4 {bark, iprime, slope}, slope = log2(10)/10 *
+//   (0.367 max(mspl - 40, 0) - 27) computed once.  The masker loop then runs
+//   over the peaks only, and one 16-byte broadcast load fetches a masker.
+// - Four lines a thread.  A warp owns four spans of 32 consecutive lines
+//   (coalesced stores); a masker fetched once feeds four sums in registers,
+//   and the four independent exp2 chains hide the unit's latency.  Warp w
+//   takes spans w, 15-w, 16+w and 31-w of the 32 in a 1,024-line tile, so
+//   that low and high lines (few and many maskers in reach) balance.
+// - The exact range skip, per span: both bark grids ascend, so the maskers
+//   whose plateau ends below the span's last line are a prefix of the
+//   compacted list (float32 subtraction is monotone, so the test that drops
+//   a masker for the last line drops it for every line of the span).  The
+//   prefix lengths of a warp's four spans ascend too: the loop runs in four
+//   stretches, the first with all four spans, the last with one.  A line
+//   below a masker's plateau adds nothing (a predicated add, not a product
+//   with zero).
+// - exp2f without its denormal range where that is exact.  exp2f(x) is the
+//   unit's ex2 plus three instructions that matter only for x < -126.  The
+//   slope is at least log2(10)/10 * -27 = -8.97 a bark, so a masker whose
+//   farthest line in the warp's spans is at most 14 bark past its plateau
+//   has every exponent above -125.6 and takes the bare instruction, with
+//   exp2f's bits.  The maskers farther away than that are again a prefix of
+//   the list (`deep`); only they pay for the full exp2f.
+//
+// Each term is computed with the plain version's unfused float32
+// operations, so it has the plain version's bits up to exp2f's rounding;
+// the sum runs in masker order with a fused multiply-add, not in the plain
+// version's order.
+
+#include <math.h>
 
 #include "kernels.h"
 
 namespace {
 
-constexpr int kLineTile = 256;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSpans = 4;                       // 32-line spans a warp owns
+constexpr int kLineTile = 32 * kSpans * kWarps; // lines a block covers a pass
 // log2(10) / 10, the constant of pactpu/ops/pallas_ops.py:34 in float32
 constexpr float kLog2_10_over_10 = 0.33219280948873623f;
 
-__global__ void spread_up_kernel(const float* __restrict__ iprime,
-                                 const float* __restrict__ mspl,
-                                 const float* __restrict__ bark,
-                                 const float* __restrict__ zvec,
-                                 float* __restrict__ out, int n_maskers,
-                                 int n_lines) {
-  extern __shared__ float sm[];
-  float* s_ip = sm;
-  float* s_lev = sm + n_maskers;
-  float* s_bark = sm + 2 * n_maskers;
+// 14 bark at the steepest slope, log2(10)/10 * -27 a bark, is an exponent
+// of -125.6: above exp2f's denormal range, which begins at -126
+constexpr float kDeepBark = 14.0f;
+
+// The sums of spans I0.. over the maskers [begin, end); kDeep: some exponent
+// may lie below -126.
+template <int I0, bool kDeep>
+__device__ __forceinline__ void accumulate(const float4* __restrict__ s_m,
+                                           int begin, int end,
+                                           const float (&zv)[kSpans],
+                                           float (&acc)[kSpans]) {
+  for (int j = begin; j < end; ++j) {
+    const float4 m = s_m[j];                    // {bark, iprime, slope, -}
+#pragma unroll
+    for (int i = I0; i < kSpans; ++i) {
+      const float dz = __fsub_rn(zv[i], m.x);
+      const float x = __fmul_rn(m.z, __fsub_rn(dz, 0.5f));
+      float e;
+      if (kDeep) {
+        e = exp2f(x);
+      } else {
+        asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(x));
+      }
+      if (dz > 0.5f) acc[i] = fmaf(m.y, e, acc[i]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+spread_up_kernel(const float* __restrict__ iprime,
+                 const float* __restrict__ mspl,
+                 const float* __restrict__ bark,
+                 const float* __restrict__ zvec, float* __restrict__ out,
+                 int n_maskers, int n_lines) {
+  extern __shared__ float4 s_m[];               // the row's peaks, compacted
+  __shared__ int s_cnt[kWarps];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
   const int64_t row = blockIdx.x;
-  const int l0 = blockIdx.y * kLineTile;
   const float* ip_r = iprime + row * n_maskers;
   const float* ms_r = mspl + row * n_maskers;
-  for (int k = threadIdx.x; k < n_maskers; k += blockDim.x) {
-    s_ip[k] = ip_r[k];
-    s_lev[k] = 0.367f * fmaxf(ms_r[k] - 40.0f, 0.0f);
-    s_bark[k] = bark[k];
+
+  // compaction: warp w counts, then writes, the peaks of its bins
+  const int seg = (n_maskers + kThreads - 1) / kThreads * 32;
+  const int k_begin = warp * seg;
+  int mine = 0;
+  for (int k0 = k_begin; k0 < k_begin + seg; k0 += 32) {
+    const int k = k0 + lane;
+    mine += __popc(__ballot_sync(kFull, k < n_maskers && ip_r[k] != 0.0f));
+  }
+  if (lane == 0) s_cnt[warp] = mine;
+  __syncthreads();
+  int at = 0, count = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) at += s_cnt[w];
+    count += s_cnt[w];
+  }
+  for (int k0 = k_begin; k0 < k_begin + seg; k0 += 32) {
+    const int k = k0 + lane;
+    const float ip = k < n_maskers ? ip_r[k] : 0.0f;
+    const bool peak = ip != 0.0f;
+    const unsigned m = __ballot_sync(kFull, peak);
+    if (peak) {
+      const float lev = __fmul_rn(0.367f, fmaxf(__fsub_rn(ms_r[k], 40.0f),
+                                                0.0f));
+      s_m[at + __popc(m & ((1u << lane) - 1u))] = make_float4(
+          bark[k], ip, __fmul_rn(kLog2_10_over_10, __fsub_rn(lev, 27.0f)),
+          0.0f);
+    }
+    at += __popc(m);
   }
   __syncthreads();
 
-  const int l = l0 + threadIdx.x;
-  const float zv = l < n_lines ? zvec[l] : 0.0f;
-  const float z_last = zvec[min(l0 + kLineTile, n_lines) - 1];
-  float acc = 0.0f;
-  for (int k = 0; k < n_maskers; ++k) {
-    const float b = s_bark[k];
-    // no line of this tile (and, bark ascending, no later masker) sits on
-    // this masker's upslope; rounding is monotone, so this is exact
-    if (__fsub_rn(z_last, b) <= 0.5f) break;
-    const float ip = s_ip[k];
-    if (ip == 0.0f) continue;
-    const float dz = __fsub_rn(zv, b);
-    if (dz > 0.5f) {
-      const float up = dz - 0.5f;
-      acc += ip * exp2f(kLog2_10_over_10 * (s_lev[k] - 27.0f) * up);
+  for (int l0 = 0; l0 < n_lines; l0 += kLineTile) {
+    int base[kSpans] = {l0 + 32 * warp, l0 + 32 * (2 * kWarps - 1 - warp),
+                        l0 + 32 * (2 * kWarps + warp),
+                        l0 + 32 * (4 * kWarps - 1 - warp)};
+    float zv[kSpans], z_last[kSpans], acc[kSpans];
+#pragma unroll
+    for (int i = 0; i < kSpans; ++i) {
+      const int l = base[i] + lane;
+      zv[i] = l < n_lines ? zvec[l] : 0.0f;
+      // a span past the last line reaches no masker
+      z_last[i] = base[i] < n_lines ? zvec[min(base[i] + 31, n_lines - 1)]
+                                    : -INFINITY;
+      acc[i] = 0.0f;
+    }
+    // end[i]: the maskers that reach span i's last line, a prefix; deep:
+    // those whose upslope runs more than kDeepBark to the warp's last line
+    int end[kSpans] = {0, 0, 0, 0};
+    int deep = 0;
+    float z_top = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kSpans; ++i) z_top = fmaxf(z_top, z_last[i]);
+    for (int j = lane; j < count; j += 32) {
+      const float b = s_m[j].x;
+      deep += __fsub_rn(__fsub_rn(z_top, b), 0.5f) > kDeepBark;
+#pragma unroll
+      for (int i = 0; i < kSpans; ++i)
+        end[i] += __fsub_rn(z_last[i], b) > 0.5f;
+    }
+#pragma unroll
+    for (int i = 0; i < kSpans; ++i) end[i] = __reduce_add_sync(kFull, end[i]);
+    deep = __reduce_add_sync(kFull, deep);
+
+    // masker order throughout: each stretch first its deep part
+    accumulate<0, true>(s_m, 0, min(end[0], deep), zv, acc);
+    accumulate<0, false>(s_m, deep, end[0], zv, acc);
+    accumulate<1, true>(s_m, end[0], min(end[1], deep), zv, acc);
+    accumulate<1, false>(s_m, max(end[0], deep), end[1], zv, acc);
+    accumulate<2, true>(s_m, end[1], min(end[2], deep), zv, acc);
+    accumulate<2, false>(s_m, max(end[1], deep), end[2], zv, acc);
+    accumulate<3, true>(s_m, end[2], min(end[3], deep), zv, acc);
+    accumulate<3, false>(s_m, max(end[2], deep), end[3], zv, acc);
+#pragma unroll
+    for (int i = 0; i < kSpans; ++i) {
+      const int l = base[i] + lane;
+      if (l < n_lines) out[row * n_lines + l] = acc[i];
     }
   }
-  if (l < n_lines) out[row * n_lines + l] = acc;
 }
 
 }  // namespace
@@ -76,9 +190,14 @@ extern "C" int pactpu_spread_up(const float* iprime, const float* mspl,
                                 const float* bark, const float* zvec,
                                 float* out, int rows, int n_maskers,
                                 int n_lines, cudaStream_t stream) {
-  const dim3 grid(rows, (n_lines + kLineTile - 1) / kLineTile);
-  const size_t smem = 3 * sizeof(float) * static_cast<size_t>(n_maskers);
-  spread_up_kernel<<<grid, kLineTile, smem, stream>>>(
+  const size_t smem = sizeof(float4) * static_cast<size_t>(n_maskers);
+  if (smem > 48 * 1024) {       // past the default limit of a block
+    const cudaError_t rc = cudaFuncSetAttribute(
+        spread_up_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  spread_up_kernel<<<rows, kThreads, smem, stream>>>(
       iprime, mspl, bark, zvec, out, n_maskers, n_lines);
   return static_cast<int>(cudaGetLastError());
 }

@@ -90,23 +90,26 @@ def _nvcc() -> str:
                        "are built from source at first use")
 
 
-def build() -> float:
+def build(csrc_dir: str = CSRC_DIR, lib_path: str = LIB_PATH,
+          log_path: str = BUILD_LOG) -> float:
     """Compile the kernels' library if it is missing or older than a
     source: one nvcc per source, all started together, then one link.
     Returns the seconds spent (0.0 if the library was current); nvcc's
     output, ptxas register and shared-memory report included, goes to
-    BUILD_LOG."""
-    deps = [os.path.join(CSRC_DIR, s) for s in SOURCES + ("kernels.h",)]
-    if (os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH)
+    log_path.  The defaults are the package's own sources and library;
+    tools/kernel_ab.py builds another checkout's sources beside it."""
+    deps = [os.path.join(csrc_dir, s) for s in SOURCES + ("kernels.h",)]
+    if (os.path.exists(lib_path) and os.path.getmtime(lib_path)
             >= max(os.path.getmtime(d) for d in deps)):
         return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    build_dir = os.path.dirname(lib_path)
+    os.makedirs(build_dir, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}.tmp"
-    objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, s)]
+    objs = [os.path.join(build_dir, f"{s}.{tag}.o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(csrc_dir, s)]
             for s, obj in zip(SOURCES, objs)]
-    tmp = f"{LIB_PATH}.{tag}"
+    tmp = f"{lib_path}.{tag}"
     t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -121,15 +124,25 @@ def build() -> float:
         if res.returncode != 0:
             failed = logs[-1:]
     seconds = time.perf_counter() - t0
-    with open(BUILD_LOG, "w") as f:
+    with open(log_path, "w") as f:
         f.write("".join(logs))
     for obj in objs:
         if os.path.exists(obj):
             os.remove(obj)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "".join(failed))
-    os.replace(tmp, LIB_PATH)
+    os.replace(tmp, lib_path)
     return seconds
+
+
+def bind(lib_path: str) -> ctypes.CDLL:
+    """Load a kernels' library and declare its C functions' types."""
+    lib = ctypes.CDLL(lib_path)
+    for symbol, argtypes in _C_FUNCS.values():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _load():
@@ -139,12 +152,7 @@ def _load():
     with _lock:
         if _lib is None:
             build()
-            lib = ctypes.CDLL(LIB_PATH)
-            for symbol, argtypes in _C_FUNCS.values():
-                fn = getattr(lib, symbol)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(LIB_PATH)
     return _lib
 
 
@@ -242,7 +250,12 @@ def water_fill(total_bits: torch.Tensor, max_mant_bits: int,
 
     total_bits: i32[R]; n_lines: i32[bands]; smr: f32[R, bands];
     lrms: bool[R, bands].  Returns (bits i32[R, bands], leftover i32[R]),
-    leftover being the unspent budget after the 1-bit refund."""
+    leftover being the unspent budget after the 1-bit refund.
+
+    -0.0 and +0.0 tie (the first band wins).  A NaN SMR is neither checked
+    for nor refused; the kernel treats it as the plain version does: the
+    band counts as the largest, is granted bits until the cap or the
+    budget ends it, and the stop rule never fires while it is there."""
     dev = smr.device
     _check("total_bits", total_bits, torch.int32, 1, dev)
     _check("n_lines", n_lines, torch.int32, 1, dev)

@@ -74,3 +74,36 @@ def test_kernel_tables_agree():
     assert set(chip_smoke.REPLACES) == set(chip_smoke.PATH_OF) == KERNELS
     assert set(K.LAUNCHES) == set(K._C_FUNCS) == KERNELS
     assert {src for src, _ in chip_smoke.REPLACES.values()} == set(K.SOURCES)
+
+
+def test_main_path_inputs_on_cpu():
+    """Phase 1's K4 and K2 inputs at a small chunk: the shapes the wrappers
+    take, a peak in every row's reach, and the edge rows of K2 (a zero
+    budget spends nothing, a huge one reaches the 16-bit cap)."""
+    from pactpu_torch.codec.engine import device_tables
+    from pactpu_torch.ops import kernels as K
+    eng = Engine(device="cpu")
+    chunk = chip_smoke.main_path_inputs(
+        torch, device_tables(eng.cfg, "cpu"), chip_smoke.synth(2.0, 4),
+        blocks=80)
+    iprime, mspl, bark, zvec = chunk["k4"]
+    assert iprime.shape == mspl.shape == (480, 1024)
+    assert bark.shape == zvec.shape == (1024,)
+    assert chunk["variants"].shape[0] == chunk["drops"].shape[0] == 480
+    out = K.spread_maskers_up(*chunk["k4"])
+    assert out.shape == (480, 1024) and bool((out >= 0).all())
+    assert bool((out > 0).any(1).all())
+    total, cap, n_lines, smr, lrms = chunk["k2"]
+    assert cap == 16 and smr.shape == lrms.shape == (80, 25)
+    bits, left = K.water_fill(*chunk["k2"])
+    assert not bits[:16].any() and int(bits[32:48].max()) == 16
+    assert bool((left >= 0).all())
+
+
+def test_edge_inputs_are_seeded():
+    """The card's tests and the CPU's see the same edge inputs."""
+    for make, names in ((chip_smoke.k4_edge, chip_smoke.K4_EDGES),
+                        (chip_smoke.k2_edge, chip_smoke.K2_EDGES)):
+        for name in names:
+            for a, b in zip(make(name), make(name)):
+                np.testing.assert_array_equal(a, b)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pactpu_torch.ops import huffman_walk as hw
 from pactpu_torch.ops import kernels as K
 from pactpu_torch.ops.huffman import load_tables
@@ -45,11 +46,13 @@ def test_extract_codes_edges(cuda, rows, n_words, n_lines):
     assert torch.equal(out, K.extract_codes_plain(words, off, width))
 
 
-@pytest.mark.parametrize("rows,n_bands,max_mant", [(1, 25, 16), (13, 7, 4),
-                                                   (515, 32, 16)])
+@pytest.mark.parametrize("rows,n_bands,max_mant", [
+    (1, 25, 16), (13, 7, 4), (515, 32, 16), (6, 1, 16), (130, 25, 1),
+    (9, 32, 1)])
 def test_water_fill_edges(cuda, rows, n_bands, max_mant):
-    """Rows that do not fill the last block's warps, narrow and full-warp
-    band counts, a low cap, zero and huge budgets, ties."""
+    """Rows that do not fill the last block's warps, one band, narrow and
+    full-warp band counts, caps of 1, 4 and 16 bits, zero and huge
+    budgets, ties."""
     rng = np.random.default_rng(n_bands)
     smr = torch.from_numpy(rng.uniform(-30, 70, (rows, n_bands))
                            .astype(np.float32))
@@ -67,6 +70,26 @@ def test_water_fill_edges(cuda, rows, n_bands, max_mant):
     assert torch.equal(bits, pbits) and torch.equal(left, pleft)
 
 
+@pytest.mark.parametrize("name", chip_smoke.K2_EDGES)
+def test_water_fill_cases(cuda, name):
+    """The named edge inputs of chip_smoke.k2_edge, bit for bit: -0.0
+    beside +0.0 (they tie, the first band wins), ties, 1 and 32 bands, zero
+    budgets, every band at the cap, a one-bit cap, NaN SMRs, SMRs at and
+    below the dead bands' key."""
+    args = [torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+            for a in chip_smoke.k2_edge(name)]
+    bits, left = K.water_fill(*args)
+    pbits, pleft = K.water_fill_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, pbits) and torch.equal(left, pleft)
+    if name == "to-the-cap":
+        assert bool((bits == 16).all())
+    if name == "zero-budget":                 # only zero-line bands are free
+        assert not bits[:, args[2] > 0].any()
+    if name == "max-mant-1":
+        assert not bits.any()                 # a lone bit is refunded
+
+
 @pytest.mark.parametrize("rows,items,n_words", [(1, 5, 1), (3, 255, 968),
                                                 (9, 1300, 37)])
 def test_pack_words_edges(cuda, rows, items, n_words):
@@ -79,10 +102,14 @@ def test_pack_words_edges(cuda, rows, items, n_words):
     assert torch.equal(out, K.pack_words_plain(p0, p1, w0, n_words))
 
 
-@pytest.mark.parametrize("rows,k,l", [(1, 128, 300), (17, 100, 1024)])
+@pytest.mark.parametrize("rows,k,l", [(1, 128, 300), (17, 100, 1024),
+                                      (2, 4096, 1024), (3, 37, 1100),
+                                      (4, 1, 31), (2, 1000, 2049)])
 def test_spread_up_edges(cuda, rows, k, l):
-    """A ragged last line tile and a masker count that is no power of
-    two; rtol 1e-5 (summation order and exp2 rounding only)."""
+    """Line counts that are no multiple of a warp's 32-line span or of the
+    1,024-line tile (one, two and three passes), masker counts that are no
+    power of two, one masker, 4,096 maskers (64 KB of shared memory);
+    rtol 1e-5 (the sum's order and a fused multiply-add only)."""
     rng = np.random.default_rng(k)
     zvec = torch.from_numpy(np.sort(rng.uniform(0, 25, l)).astype(np.float32))
     bark = torch.from_numpy(np.sort(rng.uniform(0, 25, k)).astype(np.float32))
@@ -97,6 +124,29 @@ def test_spread_up_edges(cuda, rows, k, l):
     torch.cuda.synchronize()
     assert (plain > 0).any()
     torch.testing.assert_close(out, plain, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("name", chip_smoke.K4_EDGES)
+def test_spread_up_cases(cuda, name):
+    """The named edge inputs of chip_smoke.k4_edge: a row with no peak
+    sums to zero, rows where every bin is a peak (the compacted list is
+    the whole row, at 4,096 too), ragged shapes, one masker at the lowest
+    bark (its far lines are denormal or zero, as in the plain version) and
+    at the highest (no line is above it)."""
+    ip, mspl, bark, zvec = (torch.from_numpy(a).to(cuda)
+                            for a in chip_smoke.k4_edge(name))
+    out = K.spread_maskers_up(ip, mspl, bark, zvec)
+    plain = K.spread_maskers_up_plain(ip, mspl, bark, zvec)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, plain, rtol=1e-5, atol=0)
+    if name == "no-peak":
+        assert not out[1].any() and bool((out[0] > 0).any())
+    if name == "highest-bark":
+        assert not out.any()
+    if name == "lowest-bark":
+        assert bool((out > 0).any())
+    if name in ("all-peaks", "k4096"):
+        assert bool((ip[0] != 0).all())
 
 
 def _walk_both(cuda, words: np.ndarray, n_mant_size_bits: int = 4):

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pactpu import native as jnative
 from pactpu.ops import bitalloc as jba
 from pactpu.ops import bitpack as jbp
@@ -93,6 +94,51 @@ def test_water_fill_matches_xla_loop():
     np.testing.assert_array_equal(bits.numpy(), np.asarray(gold_bits))
     np.testing.assert_array_equal(left.numpy(), np.asarray(gold_left))
     assert not bits[0].any() and int(bits[5].max()) == 16
+
+
+@pytest.mark.parametrize("name", [n for n in chip_smoke.K2_EDGES
+                                  if n not in ("nan", "dead-key")])
+def test_water_fill_edge_inputs_match_xla_loop(name):
+    """K2's edge inputs (chip_smoke.k2_edge; the CUDA kernel is held to
+    water_fill_plain on them on the card): the plain version is
+    bit-identical with bitalloc.water_fill's XLA loop on -0.0 beside +0.0,
+    ties, 1 and 32 bands, zero budgets, every band at the cap and a
+    one-bit cap."""
+    total, max_mant, n_lines, smr, lrms = chip_smoke.k2_edge(name)
+    gold_bits, gold_left = jba.water_fill(
+        jnp.asarray(total), max_mant, n_lines, jnp.asarray(smr),
+        jnp.asarray(lrms), use_pallas=False)
+    bits, left = K.water_fill(t(total), max_mant, t(n_lines), t(smr),
+                              t(lrms))
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(gold_bits))
+    np.testing.assert_array_equal(left.numpy(), np.asarray(gold_left))
+    if name == "neg-zero":
+        # -0.0 bands ahead of +0.0 ones and of 6.0 bands that meet them at
+        # key 0 once they hold a bit: the order of the ties decides which
+        # bands reach a second bit before the budget ends
+        assert np.signbit(smr[:, 0]).all() and not np.signbit(smr).all()
+        assert int(bits.max()) >= 2
+    if name == "to-the-cap":
+        assert (bits.numpy() == 16).all()
+
+
+@pytest.mark.parametrize("name", ["no-peak", "all-peaks"])
+def test_spread_up_edge_rows_match_pallas(name):
+    """K4's edge rows (chip_smoke.k4_edge): the plain upslope sum against
+    pactpu's kernel in interpret mode on a row with no peak and on a row
+    where every bin is a peak, rtol 1e-5 as in
+    test_spread_up_matches_pallas."""
+    ip, mspl, bark, zvec = chip_smoke.k4_edge(name)
+    gold = np.asarray(po.spread_maskers_up(jnp.asarray(ip),
+                                           jnp.asarray(mspl), bark, zvec,
+                                           interpret=True))
+    mine = K.spread_maskers_up(t(ip), t(mspl), t(bark), t(zvec)).numpy()
+    assert (gold > 0).any()
+    if name == "no-peak":
+        assert not mine[1].any() and not gold[1].any()
+    else:
+        assert (ip[0] != 0).all()
+    np.testing.assert_allclose(mine, gold, rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("n_words", [16, 40])

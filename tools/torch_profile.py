@@ -14,8 +14,9 @@ route and peak-picker mode, and reports, as JSON lines:
   device work lands in it);
 - "device": a torch.profiler trace of one encode + decode with no added
   synchronization: wall seconds, summed kernel (device) seconds, the
-  device's busy and idle shares, and the device time by kernel name
-  (top 15).  With --out, the chrome trace is written there.
+  device's busy and idle shares, the device time of each of the port's own
+  kernels, and the device time by kernel name (top 15).  With --out, the
+  chrome trace is written there.
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -25,6 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
@@ -98,11 +100,15 @@ def main() -> int:
                                 + ev.time_range.elapsed_us())
     busy = sum(kernels.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    # the port's own kernels (pactpu_torch/csrc), whatever their rank
+    own = {m.group(1): round(v / 1e3, 3) for k, v in kernels.items()
+           if (m := re.match(r"\(anonymous namespace\)::(\w+_kernel)\(", k))}
     print(json.dumps({"decode_parse": args.decode_parse, "device": {
         "wall_s": round(wall, 6), "kernel_s": round(busy, 6),
         "busy_share": round(busy / wall, 4),
         "idle_share": round(1 - busy / wall, 4), "blocks": blocks,
-        "top_ms": {k[:80]: round(v / 1e3, 3) for k, v in top}}}))
+        "own_kernels_ms": own,
+        "top_ms": {k[:120]: round(v / 1e3, 3) for k, v in top}}}))
     return 0
 
 
