@@ -6,7 +6,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints one line; any failure raises and exits non-zero):
 
 0. environment: the card's name and power limit, torch and CUDA versions,
-   the build times of the six CUDA kernels (nvcc, sm_90a) and of the
+   the build times of the seven CUDA kernels (nvcc, sm_90a) and of the
    native bitstream runtime (g++);
 1. kernel parity at their paths' shapes: K1-K3 and K5 bit for bit against
    their plain PyTorch versions, K4 and K6 within a stated tolerance, each
@@ -42,7 +42,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
    (the same samples) and roundtrip_many of two files against serial,
    SNR above the floor, each step's kernels launched; mono .wak and
    stereo .pac also against their JAX fixtures
-   (tests/data/torch_port_fixture_modes.npz) by both routes.
+   (tests/data/torch_port_fixture_modes.npz) by both routes;
+8. the exact rate mode (kernel K7): Engine(rate_mode="exact") on the 60 s
+   file with 128- and 512-block chunks (the same bytes), decoded, SNR
+   above the floor, its encode time beside the reservoir mode's; and
+   Engine(rate_mode="exact", precision="f64") on a 40-block stereo slice
+   and its first channel against the float64 oracle
+   (pactpu_torch.compat.refcodec), byte for byte or within
+   EXACT_F64_SNR_DB and EXACT_F64_SIZE with the first differing stage
+   printed.
+
+Phase 1 also holds K2 past 32 bands (k2_edge "40-bands") and in float64,
+K4 in float64, K5 on a 96-band stream, and K7 on a real 512-block chunk in
+float32 and float64 to their plain versions.
 
 Then a JSON line with each kernel's launches (on its path, and on every
 path and mode measured), error and times, the nvidia-smi line, and last
@@ -74,6 +86,11 @@ FS = 44100
 # (the port on the CPU), as the fixture does in the JAX package (9.7 dB).
 # A broken decode scores 0 dB or less.
 SNR_FLOOR_DB = 3.0
+# Engine(rate_mode="exact", precision="f64") against the float64 oracle:
+# byte-equal is expected; where the card's FFT or GEMM order flips a
+# borderline decision, SNR within this many dB and size within this share
+EXACT_F64_SNR_DB = 0.01
+EXACT_F64_SIZE = 0.001
 # K4: every term has the plain version's bits (the same unfused float32
 # operations, exp2f or its bare instruction where the two agree); the sum
 # runs in masker order with a fused multiply-add, the plain version's as a
@@ -81,6 +98,9 @@ SNR_FLOOR_DB = 3.0
 K4_RTOL = 1e-5
 K4_SPL_ATOL_DB = 1e-3
 K6_RTOL = 1e-5               # as K4: the terms are equal, the sum's order not
+# K4's float64 form: exp2 in double on the card against torch's on the card,
+# the sum in another order: a few float64 ulp
+K4_F64_RTOL = 1e-12
 K6_SPL_ATOL_DB = 1e-3
 REPLACES = {                 # the TPU kernel body each CUDA kernel replaces
     "extract_codes": ("extract_codes.cu", "pactpu/ops/pallas_ops.py:240"),
@@ -89,15 +109,21 @@ REPLACES = {                 # the TPU kernel body each CUDA kernel replaces
     "spread_maskers_up": ("spread_up.cu", "pactpu/ops/pallas_ops.py:85"),
     "huffman_walk": ("huffman_walk.cu", "pactpu/ops/huffman_walk.py:230"),
     "spread_maskers": ("spread.cu", "pactpu/ops/pallas_ops.py:50"),
+    # not a Pallas kernel: the lax.scan the JAX package runs as XLA ops
+    "exact_scan": ("exact_scan.cu", "pactpu/codec/exact.py:152"),
 }
 # the path whose launches each kernel's "launches" reports
 PATH_OF = {"extract_codes": "main", "water_fill": "main",
            "pack_words": "main", "spread_maskers_up": "main",
-           "huffman_walk": "device-parse", "spread_maskers": "aidan"}
+           "huffman_walk": "device-parse", "spread_maskers": "aidan",
+           "exact_scan": "exact"}
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, and float32 operations/s outside
 # the tensor cores (also taken as the rate of the 32-bit integer operations)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# the same data sheet's float64 rate outside the tensor cores, for the
+# float64 forms of K2, K4 and K7
+PEAK_F64_OPS_PER_S = 34e12
 
 
 class SmokeError(RuntimeError):
@@ -225,7 +251,8 @@ def nbytes(*tensors) -> int:
 K4_EDGES = ("no-peak", "all-peaks", "k4096", "ragged", "two-tiles",
             "lowest-bark", "highest-bark")
 K2_EDGES = ("neg-zero", "all-tied", "pair-ties", "one-band", "32-bands",
-            "zero-budget", "to-the-cap", "max-mant-1", "nan", "dead-key")
+            "zero-budget", "to-the-cap", "max-mant-1", "nan", "dead-key",
+            "40-bands")
 K6_EDGES = ("no-valid", "all-valid", "lowest-highest", "ascending",
             "descending", "shuffled", "k1", "k513", "k4096", "ragged",
             "l300", "l2500", "rising-upslope", "denormal-far")
@@ -313,9 +340,13 @@ def k2_edge(name: str):
     """Edge inputs of K2 water_fill as (total_bits, max_mant_bits, n_lines,
     smr, lrms), numpy arrays and an int: -0.0 beside +0.0, ties, 1, 25 and
     32 bands, zero budgets, budgets that drive every band to the cap, a cap
-    of one bit, NaN SMRs, SMRs at and below the dead bands' key -1e30."""
+    of one bit, NaN SMRs, SMRs at and below the dead bands' key -1e30, and
+    40 bands (two a lane) with zero-line bands and ties across a lane's two
+    bands and across lanes, where the lowest lane holding the maximum does
+    not hold the lowest band (band 33 in lane 1 against band 2 in lane
+    2)."""
     rng = np.random.default_rng(K2_EDGES.index(name))
-    n_bands = {"one-band": 1, "32-bands": 32}.get(name, 25)
+    n_bands = {"one-band": 1, "32-bands": 32, "40-bands": 40}.get(name, 25)
     rows = 9
     max_mant = 1 if name == "max-mant-1" else 16
     smr = rng.uniform(-20, 60, (rows, n_bands)).astype(np.float32)
@@ -349,7 +380,19 @@ def k2_edge(name: str):
         smr[2, ::2] = -1e30
         smr[3, 5] = -np.inf
         smr[4, 1] = np.inf
+    elif name == "40-bands":
+        n_lines[[3, 17, 35]] = 0
+        smr[:, 33] = smr[:, 2] = 70.0          # lane 1 slot 1 vs lane 2
+        smr[:, 32] = smr[:, 0]                 # one lane's two bands tie
+        smr[::3, 8:] = smr[::3, :1]            # most bands tied
+        smr[1::3, 20:40] = smr[1::3, 0:20]
+        total[::4] = rng.integers(3000, 9000, -(-rows // 4))
     return total, max_mant, n_lines, smr, lrms
+
+
+# a layout of 96 bands (64 of 8 lines, 32 of 16): past the 64 bands that
+# K5 once took by value, three bands a lane of K2 and K7
+WIDE_BANDS = (8,) * 64 + (16,) * 32
 
 
 def k6_edge(name: str):
@@ -508,8 +551,40 @@ def k1_main_input(torch, lay: dict, rows: int = 1024, seed: int = 1):
     return torch.from_numpy(words.view(np.int32)).to(dev), off, wid, mant
 
 
+def chunk_frames(torch, pcm: np.ndarray, blocks: int, device):
+    """The first `blocks` blocks of pcm [n, C] as one chunk's frames
+    i16[blocks, C, 2048] on `device`, the leading half-block of zeros
+    included, as the engine frames a file."""
+    from pactpu_torch.codec import engine as E
+    glob = np.zeros((pcm.shape[1], (blocks + 1) * 1024), np.int16)
+    n = min(pcm.shape[0], blocks * 1024)
+    glob[:, 1024:1024 + n] = pcm[:n].T
+    return E._overlap_frames(torch.from_numpy(glob).to(device), 1024)
+
+
+def k7_args(torch, cfg, dev_tables, pcm: np.ndarray, blocks: int,
+            n_valid: int = None, carry=(0, 0)):
+    """K7 exact_scan's arguments on one chunk of pcm under cfg (float64
+    where dev_tables are): the chunk's SMRs and LRMS flags (engine.analyze)
+    and its cost table (exact.cost_table), n_valid real blocks (all by
+    default), the carry (deposit, extra)."""
+    from pactpu_torch.codec import engine as E
+    from pactpu_torch.codec import exact
+    dev = dev_tables["win"].device
+    a = E.analyze(cfg, chunk_frames(torch, pcm[:, :cfg.n_channels], blocks,
+                                    dev), dev_tables)
+    return (a["smr"].contiguous(), a["lrms"].contiguous(),
+            exact.cost_table(cfg, a, dev_tables),
+            blocks if n_valid is None else n_valid,
+            torch.tensor(carry, dtype=torch.int32, device=dev),
+            float(cfg.bit_budget()), dev_tables["lay"]["n_lines"],
+            exact.max_mant(cfg), cfg.ms_stop_threshold_db,
+            cfg.lr_stop_threshold_db, cfg.n_table_id_bits,
+            cfg.reservoir_withdraw_divisor)
+
+
 def main_path_inputs(torch, dev_tables, pcm: np.ndarray, blocks: int = 512,
-                     stream: bytes = None):
+                     stream: bytes = None, parts=("k1", "k4", "k2", "k6")):
     """What one chunk of its path hands to K1, K4, K2, K6 and K5: K1's
     from k1_main_input; K4's arguments from the chunk's masker levels
     (6 * blocks rows); K2's from
@@ -518,38 +593,43 @@ def main_path_inputs(torch, dev_tables, pcm: np.ndarray, blocks: int = 512,
     of the same rows; and, given `stream` (the encode of `pcm`), K5's: the
     stream's first 2 * blocks channel-block rows at their word bucket plus
     64 copies with one word XORed with random bits (`k5`, with the rows'
-    bit counts as `k5_nbits`)."""
+    bit counts as `k5_nbits`).  `parts` names the inputs to make; the
+    float inputs are float64 where dev_tables are."""
     from pactpu_torch.codec import engine as E
     from pactpu_torch.ops import psycho
     from pactpu_torch.ops import quantize as q
     dev = dev_tables["win"].device
     psy = dev_tables["psy"]
-    glob = np.zeros((2, (blocks + 1) * 1024), np.int16)
-    glob[:, 1024:] = pcm[:blocks * 1024].T
-    frames = E._overlap_frames(torch.from_numpy(glob).to(dev), 1024)
-    sw = q.pcm16_to_float(frames) * dev_tables["win"]
+    frames = chunk_frames(torch, pcm, blocks, dev)
+    sw = q.pcm16_to_float(frames, dev_tables["win"].dtype) * dev_tables["win"]
     variants, drops = psycho.six_variants(sw, psy["hann"])
-    mspl, peak = psycho.masker_levels(variants, psy["hann"])
-    iprime = psycho.masker_intensity(mspl, peak, drops)
-    k4 = (iprime, mspl, psy["bin_bark"], psy["zvec"])
-    analysis = E.analyze(E.CodecConfig(), frames, dev_tables)
-    smr = analysis["smr"][:, 0].contiguous().clone()
-    lrms = analysis["lrms"].contiguous().clone()
-    total = torch.full((blocks,), 2116, dtype=torch.int32, device=dev)
-    total[:16] = 0
-    total[16:32] = 30000
-    total[32:48] = int(1e6)
-    smr[48:64] = 20.0                               # all bands tied
-    smr[64:80, ::2] = smr[64:80, 1::2].mean()       # pairwise ties
-    total[64:80] = torch.arange(16, device=dev, dtype=torch.int32) * 300
-    k2 = (total, 16, dev_tables["lay"]["n_lines"], smr, lrms)
-    height, bark, keep = psycho.aidan_peaks(variants, FS, "weighted",
-                                            psy["hann"])
-    check(int(keep.sum(1).max()) <= 513, "more peaks than slots")
-    k6 = (*psycho.compact_slots(height, keep, bark, psy, 0.37), drops,
-          psy["zvec"])
-    *k1, k1_mant = k1_main_input(torch, dev_tables["lay"], 2 * blocks)
-    out = dict(k1=tuple(k1), k1_mant=k1_mant, k4=k4, k2=k2, k6=k6)
+    out = {}
+    if "k4" in parts:
+        mspl, peak = psycho.masker_levels(variants, psy["hann"])
+        iprime = psycho.masker_intensity(mspl, peak, drops)
+        out["k4"] = (iprime, mspl, psy["bin_bark"], psy["zvec"])
+    if "k2" in parts:
+        analysis = E.analyze(E.CodecConfig(), frames, dev_tables)
+        smr = analysis["smr"][:, 0].contiguous().clone()
+        lrms = analysis["lrms"].contiguous().clone()
+        total = torch.full((blocks,), 2116, dtype=torch.int32, device=dev)
+        total[:16] = 0
+        total[16:32] = 30000
+        total[32:48] = int(1e6)
+        smr[48:64] = 20.0                               # all bands tied
+        smr[64:80, ::2] = smr[64:80, 1::2].mean()       # pairwise ties
+        total[64:80] = torch.arange(16, device=dev, dtype=torch.int32) * 300
+        out["k2"] = (total, 16, dev_tables["lay"]["n_lines"], smr, lrms)
+    if "k6" in parts:
+        height, bark, keep = psycho.aidan_peaks(variants, FS, "weighted",
+                                                psy["hann"])
+        check(int(keep.sum(1).max()) <= 513, "more peaks than slots")
+        out["k6"] = (*psycho.compact_slots(height, keep, bark, psy, 0.37),
+                     drops, psy["zvec"])
+    if "k1" in parts:
+        *k1, out["k1_mant"] = k1_main_input(torch, dev_tables["lay"],
+                                            2 * blocks)
+        out["k1"] = tuple(k1)
     if stream is not None:
         from pactpu_torch.codec.header import read_header
         from pactpu_torch.ops import huffman_decode as hd
@@ -859,10 +939,186 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
         exp2_count=triples, sm_clock_mhz=clock, sms=sms,
         slots_per_row=float(args6[3].sum(1).mean()),
         sfu_floor_ms=triples / (sms * 16 * clock * 1e6) * 1e3)
+    phase1_bands_f64_exact(torch, pcm, record, res, extra)
     torch.cuda.synchronize()
     for name, r in res.items():
         say("1-kernel", name=name, **r, **extra[name])
     return res
+
+
+def phase1_bands_f64_exact(torch, pcm: np.ndarray, record, res: dict,
+                           extra: dict) -> None:
+    """Phase 1's checks of the wider layouts, float64 and the exact mode:
+    K2 past 32 bands and in float64, K4 in float64, K5 past 64 bands, and
+    K7 on a real 512-block chunk of `pcm` in float32 and float64 (each
+    bit-equal with its plain version, K4 within K4_F64_RTOL), with their
+    times; a float64 form's times go under its kernel's "f64" key."""
+    from pactpu_torch import CodecConfig, Engine
+    from pactpu_torch.codec import engine as E
+    from pactpu_torch.codec.header import read_header
+    from pactpu_torch.ops import huffman_decode as hd
+    from pactpu_torch.ops import huffman_walk as hw
+    from pactpu_torch.ops import kernels as K
+    dev = torch.device("cuda")
+    blocks = 512
+
+    def times(fast, plain, moved, ops, plain_runs=3):
+        """A float64 form's times and its bound (float64 operations)."""
+        t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_F64_OPS_PER_S * 1e3
+        return dict(ms=median_ms(torch, fast),
+                    device_ms=device_ms(torch, fast),
+                    plain_ms=median_ms(torch, plain, plain_runs),
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+    # K2 and K4 in float64 on the same chunk (precision="f64")
+    cfg = CodecConfig()
+    dev64 = E.device_tables(cfg, "cuda", "f64")
+    chunk64 = main_path_inputs(torch, dev64, pcm, blocks, parts=("k4", "k2"))
+    k2 = chunk64["k2"]
+    check(k2[3].dtype == torch.float64, "K2's float64 input is not float64")
+    bits, left = K.water_fill(*k2)
+    pbits, pleft = K.water_fill_plain(*k2)
+    check(torch.equal(bits, pbits) and torch.equal(left, pleft),
+          "K2's float64 form differs from its plain version")
+    for name in K2_EDGES:
+        e_args = [torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+                  else a for a in k2_edge(name)]
+        e_args[3] = e_args[3].double()
+        got, want = K.water_fill(*e_args), K.water_fill_plain(*e_args)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K2's float64 form differs from its plain version on {name}")
+    k2_steps = int(pbits.sum()) + pbits.shape[0] * pbits.shape[1]
+    res["water_fill"]["f64"] = dict(
+        times(lambda: K.water_fill(*k2), lambda: K.water_fill_plain(*k2),
+              nbytes(k2[0], *k2[2:], bits, left), 4 * 25 * k2_steps),
+        chain_steps_max=int(pbits.sum(1).max()) + pbits.shape[1])
+    args = chunk64["k4"]
+    check(args[0].dtype == torch.float64, "K4's float64 input is not float64")
+    out = K.spread_maskers_up(*args)
+    plain = K.spread_maskers_up_plain(*args)
+    err = (out - plain).abs()
+    rel = float((err / plain.abs().clamp(min=1e-300)).max())
+    check(bool((err <= K4_F64_RTOL * plain.abs() + 1e-300).all()),
+          f"K4's float64 form beyond rtol {K4_F64_RTOL}: max rel {rel}")
+    for name in K4_EDGES:
+        e_args = [torch.from_numpy(a).to(dev).double() for a in k4_edge(name)]
+        e_out = K.spread_maskers_up(*e_args)
+        e_plain = K.spread_maskers_up_plain(*e_args)
+        check(bool(((e_out - e_plain).abs()
+                    <= K4_F64_RTOL * e_plain.abs()).all()),
+              f"K4's float64 form beyond rtol {K4_F64_RTOL} on {name}")
+    psy64 = dev64["psy"]
+    reach = (psy64["zvec"][None, :] - psy64["bin_bark"][:, None] > 0.5).sum(1)
+    triples = int(((args[0] != 0).long() * reach[None, :]).sum())
+    res["spread_maskers_up"]["f64"] = dict(
+        times(lambda: K.spread_maskers_up(*args),
+              lambda: K.spread_maskers_up_plain(*args),
+              nbytes(*args, out), 6 * triples),
+        max_abs_err=float(err.max()), max_rel_err=rel)
+
+    # K5 past 64 bands: a 96-band stream's rows and random rows
+    wide = CodecConfig(band_line_counts=WIDE_BANDS)
+    stream = Engine(device="cuda", cfg=wide).encode(pcm[:2 * FS])
+    rows_w, _ = hd.frame_rows(stream[read_header(stream)[2]:])
+    rng = np.random.default_rng(96)
+    garbage = rng.integers(0, 2 ** 32, (64, rows_w.shape[1]),
+                           dtype=np.uint64).astype(np.uint32)
+    for what, words in (("stream", rows_w), ("garbage", garbage)):
+        a = (torch.from_numpy(words.view(np.int32)).to(dev),
+             hw.device_walk_lut(None, dev), wide.band_layout.n_lines,
+             wide.n_scale_bits, wide.n_mant_size_bits, wide.n_table_id_bits)
+        got = K.huffman_walk(*a)
+        for name, x, y in zip(("code", "basf", "soff", "misc"), got,
+                              K.huffman_walk_plain(*a)):
+            check(torch.equal(x, y), f"K5 {name} differs from its plain "
+                  f"version on the 96-band {what} rows")
+    extra["huffman_walk"]["bands_96_rows"] = int(rows_w.shape[0])
+
+    # K7 on the first 512 blocks of the file, float32 then float64, from a
+    # zero carry; then the chain on: a 300-block tail from its carry
+    steps = {}
+    for prec, tables in (("f32", E.device_tables(cfg, "cuda")),
+                         ("f64", dev64)):
+        a7 = k7_args(torch, cfg, tables, pcm, blocks)
+        ex, carry = K.exact_scan(*a7)
+        stats = dict(steps=0, fills=0)
+        pex, pcarry = K.exact_scan_plain(*a7, stats=stats)
+        check(torch.equal(ex, pex) and torch.equal(carry, pcarry),
+              f"K7 ({prec}) differs from its plain version")
+        tail = (*a7[:3], 300, carry, *a7[5:])
+        check(all(torch.equal(x, y) for x, y in zip(
+            K.exact_scan(*tail), K.exact_scan_plain(*tail))),
+            f"K7 ({prec}) differs from its plain version on a padded tail")
+        steps[prec] = stats
+        # bytes: what the scan reads of the cost table (each fill's gathered
+        # row, bands x tables), the SMRs, LRMS flags and line counts, the
+        # extras and the carry in and out; operations: a greedy step
+        # compares and selects over the bands
+        smr, lrms, cost = a7[:3]
+        gathered = stats["fills"] * smr.shape[2] * cost.shape[4] * 4
+        moved = gathered + nbytes(smr, lrms, a7[6], ex) + 16
+        ops = 4 * smr.shape[2] * stats["steps"]
+        if prec == "f32":
+            record("exact_scan", 0.0, lambda: K.exact_scan(*a7),
+                   lambda: K.exact_scan_plain(*a7), moved, ops, plain_runs=1)
+            r = extra["exact_scan"]
+        else:
+            r = res["exact_scan"]["f64"] = times(
+                lambda: K.exact_scan(*a7), lambda: K.exact_scan_plain(*a7),
+                moved, ops, plain_runs=1)
+        r.update(chain_steps=stats["steps"], fills=stats["fills"],
+                 ns_per_step=r["device_ms"] * 1e6 / max(stats["steps"], 1),
+                 gathered_cost_bytes=gathered)
+    # K7's step inside its chain and its cost around each fill: SMRs near
+    # 200 dB (the stop rule never fires) and a zero cost table, with a
+    # budget that takes every band to the cap (16 steps a band) or pays for
+    # none (one step a band); the difference is free of what a fill costs
+    # besides its steps
+    rng = np.random.default_rng(7)
+    for prec, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        smr = torch.from_numpy(200 + rng.random((blocks, 2, 25))).to(dt)
+        a7 = (smr.to(dev), torch.zeros((blocks, 25), dtype=torch.bool,
+                                       device=dev),
+              torch.zeros((blocks, 2, 25, 17, 10), dtype=torch.int32,
+                          device=dev), blocks,
+              torch.zeros(2, dtype=torch.int32, device=dev))
+        ms = {}
+        for budget, per_band in ((1e5, 16), (-1e5, 1)):
+            args = (*a7, budget, dev64["lay"]["n_lines"], 16, -5.0, -15.0, 4,
+                    100)
+            stats = dict(steps=0, fills=0)
+            if per_band == 1:
+                K.exact_scan_plain(*args, stats=stats)
+                check(stats["steps"] == blocks * 2 * 25,
+                      "K7's timing input takes other steps than planned")
+            ms[per_band] = device_ms(torch, lambda: K.exact_scan(*args))
+        fills = blocks * 2
+        step = (ms[16] - ms[1]) / (fills * 25 * 15)
+        r = extra["exact_scan"] if prec == "f32" else res["exact_scan"]["f64"]
+        r.update(fill_ns_per_step=step * 1e6,
+                 fill_overhead_us=(ms[1] / fills - 25 * step) * 1e3)
+    # beside the bound, the dependent chain's: blocks x channels x greedy
+    # steps (this chunk's) x one step at K2's (K2's time alone over its
+    # longest row's steps)
+    k2_ns = (extra["water_fill"]["device_ms"] * 1e6
+             / extra["water_fill"]["chain_steps_max"])
+    k2_ns64 = (res["water_fill"]["f64"]["device_ms"] * 1e6
+               / res["water_fill"]["f64"]["chain_steps_max"])
+    extra["exact_scan"].update(
+        k2_ns_per_step=k2_ns,
+        chain_bound_ms=steps["f32"]["steps"] * k2_ns * 1e-6)
+    res["exact_scan"]["f64"].update(
+        k2_ns_per_step=k2_ns64,
+        chain_bound_ms=steps["f64"]["steps"] * k2_ns64 * 1e-6)
+    # K7's other shapes: mono, and the 96-band layout (three bands a lane)
+    for what, c7 in (("mono", CodecConfig(n_channels=1)), ("96 bands", wide)):
+        a7 = k7_args(torch, c7, E.device_tables(c7, "cuda"), pcm, 64, 50,
+                     (1234, -56))
+        check(all(torch.equal(x, y) for x, y in zip(
+            K.exact_scan(*a7), K.exact_scan_plain(*a7))),
+            f"K7 differs from its plain version on the {what} chunk")
 
 
 def check_launched(launches: dict, names, path: str) -> None:
@@ -1120,6 +1376,173 @@ def phase7(torch, make_engine, files) -> dict:
     return launches
 
 
+def stream_fields(stream: bytes, cfg) -> dict:
+    """A .wak stream's fields by channel-block, as the native parser reads
+    them (overall, table id, ba, sf, mantissas; LRMS flags by block)."""
+    from pactpu_torch import native
+    from pactpu_torch.codec.header import read_header
+    return native.unpack_file(
+        stream[read_header(stream)[2]:],
+        np.asarray(cfg.band_layout.n_lines, np.int32), cfg.n_scale_bits,
+        cfg.n_mant_size_bits, cfg.n_table_id_bits, read_lrms=True,
+        n_channels=cfg.n_channels)
+
+
+def first_difference(mine: bytes, ref: bytes, cfg) -> dict:
+    """Where two streams part: the channel-blocks whose bytes differ and,
+    at the first of them, the first field that differs, in the order the
+    encoder decides them (the LRMS flags and overall scale of the
+    analysis, the allocation ba, the scale factors, the table id, the
+    mantissas)."""
+    rows_m, rows_r = rows_of(mine), rows_of(ref)
+    differ = [i for i, (x, y) in enumerate(zip(rows_m, rows_r)) if x != y]
+    differ += list(range(min(len(rows_m), len(rows_r)),
+                         max(len(rows_m), len(rows_r))))
+    out = dict(channel_blocks=len(rows_r), differing=len(differ))
+    if differ and len(rows_m) == len(rows_r):
+        i = differ[0]
+        fm, fr = stream_fields(mine, cfg), stream_fields(ref, cfg)
+        for key in ("lrms", "overall", "ba", "sf", "table_id", "mant"):
+            at = i // cfg.n_channels if key == "lrms" else i
+            if not np.array_equal(fm[key][at], fr[key][at]):
+                out.update(first=i, stage=key)
+                break
+    return out
+
+
+def file_analysis(torch, eng, pcm: np.ndarray):
+    """The engine's analysis of a whole file, its chunks' dicts joined.
+    Returns (the file's block count, the dict)."""
+    b, _, parts = eng._analyze(pcm)
+    return b, {k: torch.cat([a[k] for a in parts]) for k in parts[0]}
+
+
+def exact_trajectory(torch, eng, whole: dict, size: int, b: int):
+    """K7's trajectory over one analysis cut into chunks of `size` blocks:
+    (the extras of the file's b blocks, the final carry)."""
+    from pactpu_torch.codec import exact
+    cut = [{k: v[i:i + size] for k, v in whole.items()}
+           for i in range(0, whole["smr"].shape[0], size)]
+    extras, carry = exact.extras_chunked(eng.cfg, cut, eng.tables(), b)
+    return torch.cat(extras)[:b], carry
+
+
+def analysis_difference(torch, a: dict, b_: dict, b: int) -> dict:
+    """How two analyses of the same file differ over its b blocks."""
+    out = {f"{k}_equal": bool(torch.equal(a[k][:b], b_[k][:b]))
+           for k in ("overall", "lrms")}
+    for k in ("mixed", "smr"):
+        out[f"{k}_max_diff"] = float((a[k][:b] - b_[k][:b]).abs().max())
+    return out
+
+
+def phase8(torch, make_engine, pcm: np.ndarray, chunks=(128, 512),
+           slice_blocks: int = 40, reps: int = 3) -> dict:
+    """Engine(rate_mode="exact"): in float32 on pcm, encode -> decode, the
+    stream parses back, SNR above the floor, K7, K2, K3 and K4 launched, and
+    the encode time beside the reservoir mode's (printed, not gated).  The
+    chunk size: the trajectory (K7's extras and carry) of the file's
+    analyses cut into chunks of each size of `chunks` is the same bit for
+    bit, and the streams of engines with those chunk sizes are byte-equal
+    (where they are not, the analyses' largest differences, the differing
+    channel-blocks and the first differing stage are printed before the
+    phase fails).  In float64 on a
+    `slice_blocks`-block stereo slice and its first channel, against the
+    float64 oracle (pactpu_torch.compat.refcodec): byte-equal, or else the
+    differing channel-blocks and the first differing stage are printed and
+    SNR must stay within EXACT_F64_SNR_DB and the size within
+    EXACT_F64_SIZE.  Returns the float32 run's launches."""
+    from pactpu_torch import CodecConfig
+    from pactpu_torch.compat import refcodec
+    from pactpu_torch.ops import kernels as K
+    engines = {c: make_engine(rate_mode="exact", chunk_blocks=c)
+               for c in chunks}
+    eng = engines[chunks[-1]]
+    eng.encode(pcm[:FS])                                  # warm
+    sync(torch)
+    K.reset_launches()
+    stream = eng.encode(pcm)
+    fs, out = eng.decode(stream)
+    sync(torch)
+    launches = dict(K.LAUNCHES)
+    check_launched(launches, ["exact_scan", "water_fill", "pack_words",
+                              "spread_maskers_up", "extract_codes"],
+                   "the exact path")
+    parses_back(stream, eng.cfg, pcm)
+    snr = snr_db(pcm, out)
+    check(fs == FS and np.isfinite(snr) and snr > SNR_FLOOR_DB,
+          f"exact: SNR {snr:.2f} dB not above the {SNR_FLOOR_DB} dB floor")
+    b, whole = file_analysis(torch, eng, pcm)
+    gold = None
+    chunking = {}
+    for c in chunks:
+        ex, carry = exact_trajectory(torch, eng, whole, c, b)
+        gold = gold or (ex, carry)
+        check(torch.equal(ex, gold[0]) and torch.equal(carry, gold[1]),
+              f"the exact trajectory depends on the chunk size ({c} "
+              f"against {chunks[0]} blocks)")
+        other = engines[c].encode(pcm)
+        line = dict(identical=other == stream)
+        if other != stream:
+            _, mine = file_analysis(torch, engines[c], pcm)
+            line.update(analysis_difference(torch, mine, whole, b),
+                        **first_difference(other, stream, eng.cfg))
+            check(False, f"the exact stream with {c}-block chunks differs "
+                  f"from the {chunks[-1]}-block one: {line}")
+        chunking[c] = line
+    reservoir = make_engine(rate_mode="reservoir", chunk_blocks=chunks[-1])
+    timing = {"exact": [], "reservoir": []}
+    for _ in range(reps):
+        for mode, e in (("exact", eng), ("reservoir", reservoir),
+                        ("reservoir", reservoir), ("exact", eng)):
+            sync(torch)
+            t0 = time.perf_counter()
+            e.encode(pcm)
+            sync(torch)
+            timing[mode].append(round(time.perf_counter() - t0, 4))
+    say("8-exact-f32", blocks=n_blocks(pcm), chunks=list(chunks),
+        bytes=len(stream), snr_db=round(snr, 3), launches=launches,
+        chunking=chunking,
+        encode_s_exact=timing["exact"],
+        encode_s_reservoir=timing["reservoir"])
+
+    for name, cfg in (("stereo", CodecConfig()),
+                      ("mono", CodecConfig(n_channels=1))):
+        x = np.ascontiguousarray(
+            pcm[:(slice_blocks - 1) * 1024, :cfg.n_channels])
+        t0 = time.perf_counter()
+        ref = refcodec.encode_file(x, FS, cfg)
+        t_ref = time.perf_counter() - t0
+        e64 = make_engine(cfg=cfg, rate_mode="exact", precision="f64")
+        e64.encode(x[:FS // 4])                           # warm
+        sync(torch)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        mine = e64.encode(x)
+        sync(torch)
+        t_mine = time.perf_counter() - t0
+        f64_launches = dict(K.LAUNCHES)
+        check_launched(f64_launches, ["exact_scan", "water_fill",
+                                      "spread_maskers_up", "pack_words"],
+                       f"the float64 exact path ({name})")
+        diff = first_difference(mine, ref, cfg)
+        line = dict(slice=name, blocks=n_blocks(x), bytes=len(mine),
+                    bytes_oracle=len(ref), identical=mine == ref, **diff,
+                    encode_s=round(t_mine, 4), oracle_s=round(t_ref, 4),
+                    launches=f64_launches)
+        if mine != ref:
+            _, out_m = refcodec.decode_file(mine)
+            _, out_r = refcodec.decode_file(ref)
+            d_snr = snr_db(x, out_m) - snr_db(x, out_r)
+            line.update(snr_diff_db=round(d_snr, 5))
+            check(abs(d_snr) <= EXACT_F64_SNR_DB
+                  and abs(len(mine) - len(ref)) <= EXACT_F64_SIZE * len(ref),
+                  f"exact f64 ({name}) differs from the oracle beyond "
+                  f"{EXACT_F64_SNR_DB} dB or {EXACT_F64_SIZE:.1%}: {diff}")
+        say("8-exact-f64", **line)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1146,7 +1569,8 @@ def main() -> int:
     on_path = {"main": launches,
                "device-parse": phase5(torch, eng_dev, streams, host_pcm),
                "aidan": phase6(torch, make, files[-1]),
-               **phase7(torch, make, files[:2])}
+               **phase7(torch, make, files[:2]),
+               "exact": phase8(torch, make, files[-1])}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda",
              source=f"pactpu_torch/csrc/{REPLACES[name][0]}",

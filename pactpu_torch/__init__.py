@@ -10,9 +10,11 @@ Layout (mirrors ``pactpu``)
 - ``pactpu_torch.ops``    tensor ops: MDCT, quantizers, psychoacoustics,
                           water-fill allocation, Huffman selection, payload
                           packing, the device-side Huffman parse, and
-                          ``kernels`` (the six CUDA kernels with their
+                          ``kernels`` (the seven CUDA kernels with their
                           plain PyTorch versions)
-- ``pactpu_torch.codec``  stream header, WAV I/O and the file ``Engine``
+- ``pactpu_torch.codec``  stream header, WAV I/O, the file ``Engine`` and
+                          the exact serial reservoir (``exact``)
+- ``pactpu_torch.compat`` ``refcodec``, the float64 oracle (numpy only)
 - ``pactpu_torch.utils``  ``CodecConfig``
 - ``pactpu_torch.native`` ctypes binding of the repository's csrc/wakbits.cc
 - ``pactpu_torch/csrc``   the CUDA sources, built at first use into

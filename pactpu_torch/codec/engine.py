@@ -3,14 +3,16 @@
 The engine frames a whole file into [B, C, 2048] chunks of blocks and runs
 analysis (window + MDCT, overall scale, L/R-vs-M/S decision, stereo or
 mono psychoacoustic SMRs), then rate control, quantization, Huffman table
-selection and payload packing on the device, one batch per chunk.  Only
+selection and payload packing on the device, one batch per chunk (the
+analysis per chunk of the default size, Engine._analyze).  Only
 the framing of the packed rows into the stream (and, on decode, the
 Huffman bit-walk) runs on the host, in the repository's native runtime
 (csrc/wakbits.cc through pactpu_torch.native).
 
 Ported here: stereo and mono, the sine and KBD windows, the three peak
 pickers, water-fill allocation, the intensity and bit-allocation M/S
-rules, float32, on-device packing, and the rate modes
+rules, float32 and float64 (precision "f32" | "f64"), on-device packing,
+and the rate modes
 
 - "cbr":       every block allocates from the flat per-block budget.
 - "reservoir": two passes.  Pass 1 measures per-channel Huffman savings
@@ -20,6 +22,11 @@ rules, float32, on-device packing, and the rate modes
                reference codec/Huffman.py:353-371, codec/codec.py:229);
                pass 2 re-encodes with those extra bits.  The analysis runs
                once and feeds both passes.
+- "exact":     the reference's serial reservoir trajectory itself: cost
+               tables of every allocation, then kernel K7 walks every
+               block (pactpu_torch.codec.exact), then one final pass.  With
+               precision="f64" the stream is the reference's serial encode
+               (the float64 oracle, pactpu_torch.compat.refcodec).
 
 In both modes channel 0's allocation leftover funds channel 1 of the same
 block (codec/codec.py:258-260).  `peak_mode` "para" and "weighted" swap the
@@ -35,6 +42,12 @@ kernel K1; "device" uploads the raw payload framed into word rows and runs
 the Huffman bit-walk there (kernel K5, then K1 for signs and LRMS flags),
 or for .pac the fixed-width parse (K1 alone).  Both end in the same
 synthesis and overlap-add and give the same samples.
+
+Under precision="f64" every float stage runs in float64 (the basis, the
+psychoacoustic tables, the windows, K2's and K4's float64 forms), with the
+reference's float64 arithmetic where it decides an integer
+(pactpu_torch.ops.quantize); `fmt="pac"` encodes in float32 whatever the
+precision, as pactpu does.
 
 Float32 products run in full float32: the engine turns TF32 off
 (`torch.backends.cuda.matmul.allow_tf32`, `torch.backends.cudnn.allow_tf32`)
@@ -53,6 +66,7 @@ import numpy as np
 import torch
 
 from pactpu_torch import native
+from pactpu_torch.codec import exact
 from pactpu_torch.codec.header import read_header, write_header
 from pactpu_torch.ops import bitalloc, bitpack, huffman, kernels, psycho
 from pactpu_torch.ops import huffman_decode as hd
@@ -82,47 +96,61 @@ _TAIL_BUCKETS = (16, 32, 64, 96, 128, 192, 256, 384, 512)
 _PAYLOAD_WORD_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 
 
+PRECISIONS = {"f32": np.float32, "f64": np.float64}
+
+
+def _np_dtype(precision: str):
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r} (f32 or f64)")
+    return PRECISIONS[precision]
+
+
 @lru_cache(maxsize=8)
-def engine_consts_np(cfg: CodecConfig) -> dict:
+def engine_consts_np(cfg: CodecConfig, precision: str = "f32") -> dict:
     """The engine's constant tables as numpy arrays, array for array those
-    of pactpu.codec.engine.engine_consts_np(cfg): the MDCT basis, the
-    psychoacoustic tables and the Huffman code tables."""
+    of pactpu.codec.engine.engine_consts_np(cfg, precision): the MDCT basis
+    and the psychoacoustic tables in float32 or float64, and the Huffman
+    code tables."""
     n = 2 * cfg.n_mdct_lines
-    return dict(basis=_mdct_basis_np(n).astype(np.float32),
-                psy=psycho._consts(n, cfg.sample_rate),
+    dt = _np_dtype(precision)
+    return dict(basis=_mdct_basis_np(n).astype(dt),
+                psy=psycho._consts(n, cfg.sample_rate, np.dtype(dt).name),
                 tabs=huffman.load_tables())
 
 
 def consts_from_numpy(consts_np: dict, device) -> dict:
     """Device tensors from an engine_consts_np dict (this package's, or
-    pactpu.codec.engine.engine_consts_np's: the same arrays).
+    pactpu.codec.engine.engine_consts_np's: the same arrays), in the float
+    type of its basis.
 
-    Returns dict(basis f32[N, N/2], psy dict of quiet_i, zvec, bin_bark,
-    mld, nonup and the Hann window, tabs tuple of int32 tables)."""
+    Returns dict(basis [N, N/2], psy dict of quiet_i, zvec, bin_bark, mld,
+    nonup and the Hann window, tabs tuple of int32 tables)."""
+    dt = np.float64 if consts_np["basis"].dtype == np.float64 else np.float32
     t = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=device)  # noqa: E731
-    basis = t(consts_np["basis"], np.float32)
+    basis = t(consts_np["basis"], dt)
     quiet_i, zvec, bin_bark, mld, nonup = consts_np["psy"]
     # kernel K4 skips masker ranges by the order of the bark grids
     for name, grid in (("zvec", zvec), ("bin_bark", bin_bark)):
-        if not np.all(np.diff(np.asarray(grid, np.float32)) >= 0):
+        if not np.all(np.diff(np.asarray(grid, dt)) >= 0):
             raise ValueError(f"psychoacoustic {name} grid must ascend")
-    psy = dict(quiet_i=t(quiet_i, np.float32), zvec=t(zvec, np.float32),
-               bin_bark=t(bin_bark, np.float32), mld=t(mld, np.float32),
-               nonup=t(nonup, np.float32),
-               hann=t(hann_window(basis.shape[0]), np.float32))
+    psy = dict(quiet_i=t(quiet_i, dt), zvec=t(zvec, dt),
+               bin_bark=t(bin_bark, dt), mld=t(mld, dt), nonup=t(nonup, dt),
+               hann=t(hann_window(basis.shape[0]), dt))
     tabs = tuple(t(a, np.int32) for a in consts_np["tabs"])
     return dict(basis=basis, psy=psy, tabs=tabs)
 
 
-def device_tables(cfg: CodecConfig, device) -> dict:
+def device_tables(cfg: CodecConfig, device, precision: str = "f32") -> dict:
     """Everything the chunk programs read besides their inputs: the
     constants (consts_from_numpy), the band layout tables
-    (psycho.layout_tensors) under "lay", and the analysis window "win"."""
-    dev = consts_from_numpy(engine_consts_np(cfg), device)
+    (psycho.layout_tensors) under "lay", and the analysis window "win", in
+    the float type of `precision`."""
+    dt = _np_dtype(precision)
+    dev = consts_from_numpy(engine_consts_np(cfg, precision), device)
     dev["lay"] = psycho.layout_tensors(cfg.band_layout, device)
     dev["win"] = torch.as_tensor(
-        np.asarray(analysis_window(cfg.window, 2 * cfg.n_mdct_lines),
-                   np.float32), device=device)
+        np.asarray(analysis_window(cfg.window, 2 * cfg.n_mdct_lines), dt),
+        device=device)
     return dev
 
 
@@ -139,7 +167,8 @@ def _overlap_frames(y: torch.Tensor, half: int) -> torch.Tensor:
 def analyze(cfg: CodecConfig, frames_i16: torch.Tensor, dev: dict) -> dict:
     """Encoder front half (pactpu analyze_body): frames i16[B, C, 2N] ->
     dict(mixed f32[B, C, N], smr f32[B, C, bands], lrms bool[B, bands],
-    overall i32[B, C]).  Mono takes the mono SMRs and no LRMS flags;
+    overall i32[B, C]), float64 where dev's tables are.  Mono takes the
+    mono SMRs and no LRMS flags;
     stereo decides L/R vs M/S per band by cfg.ms_decision, the spectral
     intensity rule or the bit-allocation rule (water-filling all four
     codings), and takes the stereo SMRs of the chosen coding."""
@@ -156,7 +185,7 @@ def analyze(cfg: CodecConfig, frames_i16: torch.Tensor, dev: dict) -> dict:
     if cfg.ms_decision == "bitalloc":
         lrms = bitalloc.lrms_decision_bitalloc(
             smr_lr, smr_ms, lay["n_lines"], int(cfg.bit_budget()),
-            _max_mant(cfg), cfg.ms_stop_threshold_db,
+            exact.max_mant(cfg), cfg.ms_stop_threshold_db,
             cfg.lr_stop_threshold_db)
     else:
         lrms = psycho.lrms_decision(frames, lay, cfg.ms_decision_factor)
@@ -169,16 +198,12 @@ def _transform(cfg: CodecConfig, frames_i16: torch.Tensor, dev: dict):
     """Window + MDCT and the overall block scale: frames i16[B, C, 2N] ->
     (frames f32, windowed f32[B, C, 2N], overall i32[B, C], lines scaled by
     2^overall f32[B, C, N])."""
-    frames = q.pcm16_to_float(frames_i16)
+    dt = dev["basis"].dtype
+    frames = q.pcm16_to_float(frames_i16, dt)
     sw = frames * dev["win"]
     lines = mdct(sw, dev["basis"])
     overall = q.scale_factor(torch.abs(lines).amax(-1), cfg.n_scale_bits, 5)
-    return frames, sw, overall, lines * q.exp2i(overall)[..., None]
-
-
-def _max_mant(cfg: CodecConfig) -> int:
-    """The mantissa bit cap: the size field's range or max_mant_bits."""
-    return min(1 << cfg.n_mant_size_bits, cfg.max_mant_bits)
+    return frames, sw, overall, lines * q.exp2i(overall, dt)[..., None]
 
 
 def finalize(cfg: CodecConfig, analysis: dict, extra0: torch.Tensor,
@@ -188,22 +213,23 @@ def finalize(cfg: CodecConfig, analysis: dict, extra0: torch.Tensor,
     packing): water-filling allocation with the ch0 -> ch1 leftover chain,
     BFP quantization, Huffman table selection, payload packing.
 
-    analysis: the analyze() dict; extra0: f32[B] reservoir extra bits of
-    channel 0.  measure_only returns just (savings i32[B, 2], leftover
+    analysis: the analyze() dict (float32 or float64: the budget's sum
+    runs in its type); extra0: f32[B] reservoir extra bits of channel 0.
+    measure_only returns just (savings i32[B, 2], leftover
     i32[B]), the reservoir measurement.  Otherwise the dict also holds
     overall, lrms, bits, sf, tid and the packed payload words
     i32[2B, pack_words] (u32 bit patterns) with nbits i32[2B]."""
     lay = dev["lay"]
     half = cfg.n_mdct_lines
     n_lines, seg = lay["n_lines"], lay["seg"]
-    max_mant = _max_mant(cfg)
+    max_mant = exact.max_mant(cfg)
     mixed, smr, lrms = analysis["mixed"], analysis["smr"], analysis["lrms"]
     overall = analysis["overall"].to(torch.int32)
     b, c = mixed.shape[0], mixed.shape[1]
 
-    budget = torch.tensor(cfg.bit_budget(), dtype=torch.float32,
-                          device=mixed.device)
-    extra = extra0.to(torch.float32)
+    dt = mixed.dtype
+    budget = torch.tensor(cfg.bit_budget(), dtype=dt, device=mixed.device)
+    extra = extra0.to(dt)
     bits_ch = []
     for ch in range(c):
         total = (budget + extra).to(torch.int32)       # truncates, as int()
@@ -211,7 +237,7 @@ def finalize(cfg: CodecConfig, analysis: dict, extra0: torch.Tensor,
             total, max_mant, n_lines, smr[:, ch], lrms,
             cfg.ms_stop_threshold_db, cfg.lr_stop_threshold_db)
         bits_ch.append(bits_c)
-        extra = left.to(torch.float32)
+        extra = left.to(dt)
     bits = torch.stack(bits_ch, dim=1)                  # [B, C, bands]
 
     peak = psycho.band_max(torch.abs(mixed), lay, fill=0.0)
@@ -281,9 +307,9 @@ def finalize_baseline(cfg: CodecConfig, scaled: torch.Tensor,
     smr = smr.reshape(b * c, n_bands)
     bits, _ = bitalloc.water_fill(
         torch.full((b * c,), int(budget), dtype=torch.int32,
-                   device=smr.device), _max_mant(cfg), lay["n_lines"], smr,
-        torch.zeros_like(smr, dtype=torch.bool), cfg.ms_stop_threshold_db,
-        cfg.lr_stop_threshold_db)
+                   device=smr.device), exact.max_mant(cfg), lay["n_lines"],
+        smr, torch.zeros_like(smr, dtype=torch.bool),
+        cfg.ms_stop_threshold_db, cfg.lr_stop_threshold_db)
     bits = bits.reshape(b, c, n_bands)
     peak = psycho.band_max(torch.abs(scaled), lay, fill=0.0)
     sf = q.scale_factor(peak, cfg.n_scale_bits, bits)
@@ -312,11 +338,13 @@ def decode_body(cfg: CodecConfig, ba, sf, mant, overall, lrms,
     """Synthesis: quantized block arrays -> pre-overlap time samples.
 
     ba/sf: i32[B, C, bands]; mant: i32[B, C, N]; overall: i32[B, C];
-    lrms: bool[B, bands] (read for stereo only).  Returns f32[B, C, 2N]."""
+    lrms: bool[B, bands] (read for stereo only).  Returns f32[B, C, 2N]
+    (float64 where dev's tables are)."""
+    dt = dev["basis"].dtype
     seg = dev["lay"]["seg"]
     nm_l = ba[..., seg]
-    vals = q.bfp_dequantize(sf[..., seg], mant, cfg.n_scale_bits, nm_l)
-    lines = vals * q.exp2i(-overall)[..., None]
+    vals = q.bfp_dequantize(sf[..., seg], mant, cfg.n_scale_bits, nm_l, dt)
+    lines = vals * q.exp2i(-overall, dt)[..., None]
     if cfg.n_channels == 2:
         # Q1 aliasing: the reference decoder emits L' = M - S, R' = M
         # (reference codec/codec.py:46-56)
@@ -413,6 +441,28 @@ def _offsets(sizes, scale: int = 1) -> list:
     return list(itertools.accumulate((s * scale for s in sizes), initial=0))
 
 
+def _default_batches(b: int) -> list:
+    """The default chunking of a b-block file: the batches the encoder's
+    analysis runs in."""
+    return _chunk_sizes(b, _pad_blocks(b))
+
+
+def _recut(parts: list, counts: list, offs: list) -> list:
+    """Dicts of per-block tensors for consecutive batches of counts[k]
+    blocks, re-cut into the chunks [offs[i], offs[i + 1]): views where a
+    chunk lies in one batch, joined where it spans several."""
+    starts = _offsets(counts)
+    out = []
+    for lo, hi in zip(offs[:-1], offs[1:]):
+        cut = [(p, max(lo, s) - s, min(hi, e) - s)
+               for p, s, e in zip(parts, starts[:-1], starts[1:])
+               if s < hi and e > lo]
+        out.append({key: cut[0][0][key][cut[0][1]:cut[0][2]] if len(cut) == 1
+                    else torch.cat([p[key][a:z] for p, a, z in cut])
+                    for key in parts[0]})
+    return out
+
+
 def _chunk_sizes(b: int, chunk: int) -> list:
     """Per-chunk block counts for a b-block file: full `chunk`-sized chunks
     plus a tail bucketed to the next size of _TAIL_BUCKETS (capped at
@@ -470,32 +520,37 @@ class Engine:
 
     device: where the chunk programs run ("cuda", "cuda:0", "cpu"); the
     default is the card, and without one the constructor raises: the CPU
-    is used only when asked for.  On a CUDA device the six kernels run as
+    is used only when asked for.  On a CUDA device the kernels run as
     hand-written CUDA; on the CPU their plain versions run.  fmt="wak" is
     the full coder (Huffman, M/S, reservoir); fmt="pac" the baseline coder
     (independent channels, raw mantissas, no reservoir: rate_mode makes no
     difference to it), whose streams carry nothing that tells them apart:
     the engine's fmt decides how a stream is read.  Nor does a stream carry
     its window: synthesis uses the engine's cfg.window.  chunk_blocks
-    fixes the batch size (None = adapt up to DEFAULT_CHUNK_BLOCKS).
+    fixes the batch size of the rate control, the final pass and the
+    decode (None = adapt up to DEFAULT_CHUNK_BLOCKS); the encode's
+    analysis runs in the default batches whatever it is, so the bytes do
+    not depend on it.
     decode_parse places the decoder's parse: "host" (native runtime),
     "device" (on the raw payload: kernel K5 for .wak, K1 for .pac) or
     "auto" (= host: the native runtime is always there); None reads
-    PACTPU_DECODE_PARSE (default auto)."""
+    PACTPU_DECODE_PARSE (default auto).  precision "f32" or "f64" is the
+    float type of every stage (the .pac encode stays float32);
+    rate_mode="exact" is the reference's serial reservoir (kernel K7), and
+    with "f64" the reference's serial encode byte for byte."""
 
     def __init__(self, device="cuda", cfg: Optional[CodecConfig] = None,
                  rate_mode: str = "reservoir", fmt: str = "wak",
                  chunk_blocks: Optional[int] = None,
-                 decode_parse: Optional[str] = None):
+                 decode_parse: Optional[str] = None,
+                 precision: str = "f32"):
         if rate_mode not in ("cbr", "reservoir", "exact"):
             raise ValueError(f"unknown rate mode {rate_mode!r}")
         if fmt not in ("wak", "pac"):
             raise ValueError(f"unknown format {fmt!r}")
         if fmt == "pac" and rate_mode == "exact":
             raise ValueError("the baseline .pac coder has no reservoir")
-        if rate_mode == "exact":
-            raise ValueError("rate_mode='exact' (f64) is not ported: "
-                             "ROADMAP queue 1, item 7")
+        _np_dtype(precision)                          # validate
         if decode_parse is None:
             decode_parse = os.environ.get("PACTPU_DECODE_PARSE", "auto")
         if decode_parse not in ("auto", "device", "host"):
@@ -505,37 +560,42 @@ class Engine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda'): no CUDA device")
         self.cfg = cfg or CodecConfig()
-        _check_config(self.cfg)
+        _check_config(self.cfg, rate_mode, precision)
         self.rate_mode = rate_mode
         self.fmt = fmt
+        self.precision = precision
         self.chunk_blocks = chunk_blocks
         self.decode_parse = decode_parse
-        self._dev = None
+        self._dev = {}
         _full_fp32()
 
-    def tables(self) -> dict:
-        """Device-resident constant tables (uploaded once per Engine)."""
-        if self._dev is None:
-            self._dev = device_tables(self.cfg, self.device)
-        return self._dev
+    def tables(self, precision: Optional[str] = None) -> dict:
+        """Device-resident constant tables in the engine's precision (or
+        the one named), uploaded once per Engine."""
+        precision = precision or self.precision
+        if precision not in self._dev:
+            self._dev[precision] = device_tables(self.cfg, self.device,
+                                                 precision)
+        return self._dev[precision]
 
     def _chunk(self, b: int) -> int:
         return self.chunk_blocks or _pad_blocks(b)
 
     # -- encode ----------------------------------------------------------
 
-    def _frames(self, pcm: np.ndarray):
-        """Upload the PCM once and cut it into chunks of overlapped frames.
+    def _frames(self, pcm: np.ndarray, batches):
+        """Upload the PCM once and cut it into batches of overlapped frames.
         Returns (b, sizes, frames): the file's block count (the flush block
-        included), the chunks' block counts and their frames
-        i16[size, C, 2N] on the device."""
+        included), the chunks' block counts and the frames i16[n, C, 2N]
+        on the device of each batch of batches(b), a list of block counts
+        (zero frames past the file)."""
         half = self.cfg.n_mdct_lines
         c = self.cfg.n_channels
         if pcm.ndim != 2 or pcm.shape[1] != c:
             raise ValueError(f"pcm must be [n, {c}] int16, got {pcm.shape}")
         b = -(-pcm.shape[0] // half) + 1             # + flush block
         sizes = _chunk_sizes(b, self._chunk(b))
-        offs = _offsets(sizes)
+        offs = _offsets(batches(b))
         b_pad = offs[-1]
         glob = np.zeros((c, (b_pad + 1) * half), np.int16)
         n = min(pcm.shape[0], b_pad * half)
@@ -543,21 +603,45 @@ class Engine:
         pcm_dev = torch.from_numpy(glob).to(self.device)
         return b, sizes, [_overlap_frames(
             pcm_dev[:, offs[k] * half:(offs[k + 1] + 1) * half], half)
-            for k in range(len(sizes))]
+            for k in range(len(offs) - 1)]
+
+    def _analyze(self, pcm: np.ndarray):
+        """Upload the PCM and analyse it.  Returns (b, sizes, analyses):
+        as _frames, with the analysis dict of each chunk.
+
+        The analysis runs in the batches of the default chunking, whatever
+        chunk_blocks is, and the chunks are cut from them: cuBLAS and cuFFT
+        pick their kernels by batch size, so a block's float32 lines and
+        SMRs would otherwise depend on the chunk size, and so would the
+        exact mode's stream.  Blocks past the default chunking's padding,
+        which a larger chunk size adds, are all zero frames: they take a
+        batch of their own."""
+        def batches(b):
+            own = _default_batches(b)
+            rest = sum(_chunk_sizes(b, self._chunk(b))) - sum(own)
+            return own + ([rest] if rest > 0 else [])
+
+        b, sizes, frames = self._frames(pcm, batches)
+        dev = self.tables()
+        parts = [analyze(self.cfg, f, dev) for f in frames]
+        return b, sizes, _recut(parts, [f.shape[0] for f in frames],
+                                _offsets(sizes))
 
     def _encode_chunks(self, pcm: np.ndarray) -> dict:
-        """Upload the PCM once, run the analysis and both reservoir passes
-        chunk by chunk, and stage the dense payload download.  The only
-        host round trip before the download is the pass-1 measurement the
-        reservoir replay needs."""
+        """Upload the PCM once, run the analysis (_analyze) and the rate
+        control (both reservoir passes, or the exact scan) chunk by chunk,
+        and stage the dense payload download.  The only host round trip
+        before the download is the pass-1 measurement the reservoir replay
+        needs; the exact scan chains its carry on the device."""
         cfg = self.cfg
-        c = cfg.n_channels
-        b, sizes, frames = self._frames(pcm)
+        b, sizes, analyses = self._analyze(pcm)
         offs = _offsets(sizes)
         b_pad = offs[-1]
         dev = self.tables()
-        analyses = [analyze(cfg, f, dev) for f in frames]
 
+        if self.rate_mode == "exact":
+            extras_chunks, _ = exact.extras_chunked(cfg, analyses, dev, b)
+            return self._stage_payload(analyses, extras_chunks, b, sizes)
         extras = np.zeros(b_pad, np.float32)
         if self.rate_mode == "reservoir":
             zero = [torch.zeros(s, device=self.device) for s in sizes]
@@ -572,12 +656,19 @@ class Engine:
         extras_dev = torch.from_numpy(extras).to(self.device)
         extras_chunks = [extras_dev[offs[k]:offs[k + 1]]
                          for k in range(len(sizes))]
+        return self._stage_payload(analyses, extras_chunks, b, sizes)
+
+    def _stage_payload(self, analyses, extras_chunks, b: int,
+                       sizes: list) -> dict:
+        """The final pass of every chunk with its extra bits, and the
+        staged dense payload download."""
+        cfg, dev = self.cfg, self.tables()
         outs = [finalize(cfg, a, ex, dev, pack_words=PACK_WORDS)
                 for a, ex in zip(analyses, extras_chunks)]
         dense = bitpack.compact_rows(
             torch.cat([o["words"] for o in outs]),
             torch.cat([o["nbits"] for o in outs]),
-            b_pad * c * PACK_DENSE_WORDS)
+            sum(sizes) * cfg.n_channels * PACK_DENSE_WORDS)
         return dict(outs=outs, b=b, analyses=analyses,
                     extras=extras_chunks, sizes=sizes, dense=dense)
 
@@ -630,13 +721,15 @@ class Engine:
         return b"".join(parts)
 
     def _encode_baseline(self, pcm: np.ndarray) -> bytes:
-        """The .pac payload: encode_baseline chunk by chunk, ONE download
-        of every chunk's side info and mantissas, host serialization
+        """The .pac payload: encode_baseline batch by batch (the default
+        chunking's, whatever chunk_blocks is: no rate control spans them,
+        and the bytes do not depend on it, as in _analyze), ONE download
+        of every batch's side info and mantissas, host serialization
         (native pack_file, the baseline layout)."""
         cfg = self.cfg
         c, half = cfg.n_channels, cfg.n_mdct_lines
-        b, _, frames = self._frames(pcm)
-        dev = self.tables()
+        b, _, frames = self._frames(pcm, _default_batches)
+        dev = self.tables("f32")          # as pactpu: .pac encodes in f32
         outs = [encode_baseline(cfg, f, dev) for f in frames]
         host = torch.cat([torch.cat([o["overall"][..., None], o["bits"],
                                      o["sf"], o["mant"]], -1)
@@ -766,8 +859,9 @@ class Engine:
         queues its decode, returning (pcm i16[B, C, N], carry', bad
         bool[C B] or None)."""
         cfg, num_samples, off = read_header(data)
-        _check_config(cfg)
+        _check_config(cfg, precision=self.precision)
         if self.decode_parse == "device":
+            _check_device_parse(cfg)
             staged = self._decode_staging_device_parse(data, off, cfg)
             if staged is None:
                 raise ValueError(
@@ -906,7 +1000,8 @@ class Engine:
         so that one download brings both."""
         cfg, b = staged["cfg"], staged["b"]
         c, half = cfg.n_channels, cfg.n_mdct_lines
-        carry = torch.zeros((c, half), device=self.device)
+        carry = torch.zeros((c, half), dtype=self.tables()["basis"].dtype,
+                            device=self.device)
         pcm_chunks, bad_chunks = [], []
         for args in staged["chunk_args"]:
             pcm, carry, bad = staged["run"](*args, carry)
@@ -948,10 +1043,13 @@ class Engine:
         return cfg.sample_rate, pcm.copy()
 
 
-def _check_config(cfg: CodecConfig) -> None:
+def _check_config(cfg: CodecConfig, rate_mode: str = "reservoir",
+                  precision: str = "f32") -> None:
     """Refuse what the port does not run: the greedy allocators (still to
-    port, ROADMAP queue 1, item 7), more than 5 mantissa-size bits (the
-    walk's band records hold 5) and anything pactpu refuses too."""
+    port, ROADMAP queue 1, item 3), the aidan peak modes in float64 (K6 has
+    no float64 form yet, ROADMAP queue 2), anything pactpu refuses too, and
+    what pactpu refuses in the exact mode (it reproduces the reference's
+    water-filled, sine-windowed, intensity-M/S trajectory)."""
     bad = []
     for field, want in (("n_channels", (1, 2)),
                         ("window", ("sine", "kbd")),
@@ -961,8 +1059,25 @@ def _check_config(cfg: CodecConfig) -> None:
         if getattr(cfg, field) not in want:
             bad.append(f"{field}={getattr(cfg, field)!r}")
             if field == "alloc_mode":
-                bad[-1] += " (ROADMAP queue 1, item 7: the allocators)"
-    if cfg.n_mant_size_bits > 5:
-        bad.append("n_mant_size_bits > 5")
+                bad[-1] += " (ROADMAP queue 1, item 3: the allocators)"
+    if precision == "f64" and cfg.peak_mode != "ref":
+        bad.append(f"peak_mode={cfg.peak_mode!r} with precision='f64' "
+                   "(ROADMAP queue 2: K6's float64 form)")
     if bad:
         raise ValueError("not ported: " + ", ".join(bad))
+    if rate_mode == "exact":
+        for field, want in (("window", "sine"),
+                            ("ms_decision", "intensity")):
+            if getattr(cfg, field) != want:
+                raise ValueError(
+                    f"rate_mode='exact' reproduces the reference's "
+                    f"trajectory: {field} must be {want!r}")
+
+
+def _check_device_parse(cfg: CodecConfig) -> None:
+    """The device-parse route's own limit: kernel K5's band records hold
+    at most 5 mantissa-size bits (encode and the host parse take more)."""
+    if cfg.n_mant_size_bits > 5:
+        raise ValueError("decode_parse='device': at most 5 mantissa-size "
+                         f"bits (this stream has {cfg.n_mant_size_bits}); "
+                         "decode it with decode_parse='host'")

@@ -46,6 +46,9 @@
 // - Coalesced stores, no fill.  Lane 0 stages the codes in shared memory
 //   (zero where the row's band has no bits) and, every 128 lines, the warp
 //   writes the stage out, 16 bytes a lane, every line of the output once.
+// - The band layout (each band's line count) is a device array that every
+//   block stages in shared memory beside the tables, so a layout may have
+//   any number of bands.
 // - kMaxWarps = 8 rows a block: every block copies the tables, two blocks
 //   fit an SM, and a chunk's 1,024 rows are 128 blocks, one wave on 132
 //   SMs; with 4 a block a chunk needs two waves.
@@ -62,10 +65,6 @@ constexpr int kSideSize = 128;
 constexpr int kMaxWarps = 8;                // rows a block, one a warp
 constexpr int kStage = 128;                 // lines staged between flushes
 constexpr size_t kMaxShared = 227 * 1024;   // what a block may ask for
-
-struct Bands {
-  int32_t n[kWalkMaxBands];
-};
 
 // cp.async of kBytes (4 or 16, both pointers aligned to that)
 template <int kBytes>
@@ -89,6 +88,12 @@ __device__ __forceinline__ void copy_table(uint32_t* to_shared,
                                            int n) {
   for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x)
     copy_async<16>(to_shared + i, from_global + i);
+}
+
+// words of shared memory the band layout takes: n_bands, rounded up to 16
+// bytes so that the tables behind it stay aligned for their 16-byte copies
+__host__ __device__ __forceinline__ int band_words(int n_bands) {
+  return (n_bands + 3) & ~3;
 }
 
 // top n bits of 32, n in [0, 32]
@@ -163,7 +168,8 @@ template <bool kSharedWords, bool kSharedRoot>
 __global__ void huffman_walk_kernel(
     const uint32_t* __restrict__ words, const uint32_t* __restrict__ l1,
     const uint32_t* __restrict__ l1b, const uint32_t* __restrict__ l2,
-    Bands bands, int32_t* __restrict__ code, int32_t* __restrict__ basf,
+    const int32_t* __restrict__ n_lines, int32_t* __restrict__ code,
+    int32_t* __restrict__ basf,
     int32_t* __restrict__ soff, int32_t* __restrict__ misc, int rows,
     int n_words, int n_bands, int total_lines, int n_tab, int l2_width,
     int n_scale_bits, int n_mant_size_bits, int n_table_id_bits) {
@@ -172,13 +178,17 @@ __global__ void huffman_walk_kernel(
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * warps + warp;      // the warp's row
-  // shared memory: the tables, a stage a warp, the row's words a warp
-  uint32_t* s_l1 = smem;
+  // shared memory: the band layout, the tables, a stage a warp, the row's
+  // words a warp
+  int32_t* s_bands = reinterpret_cast<int32_t*>(smem);
+  uint32_t* s_l1 = smem + band_words(n_bands);
   uint32_t* s_l1b = s_l1 + (kSharedRoot ? n_tab * kRootSize : 0);
   uint32_t* stage = s_l1b + (kSharedRoot ? n_tab * kSideSize : 0) +
                     warp * kStage;
   uint32_t* s_words = stage + (warps - warp) * kStage + warp * (n_words + 3);
 
+  for (int b = threadIdx.x; b < n_bands; b += blockDim.x)
+    s_bands[b] = n_lines[b];
   if (kSharedRoot) {
     copy_table(s_l1, l1, n_tab * kRootSize);
     copy_table(s_l1b, l1b, n_tab * kSideSize);
@@ -220,7 +230,7 @@ __global__ void huffman_walk_kernel(
   int shortest = 31;            // of the codes met: 0 = no such codeword
   int line = 0, staged = 0;     // lines written out, lines in the stage
   for (int b = 0; b < n_bands; ++b) {
-    const int nl = bands.n[b];
+    const int nl = s_bands[b];
     const int ba_raw = read(n_mant_size_bits);
     const int sf = read(n_scale_bits);
     if (lane == 0) {
@@ -292,23 +302,23 @@ __global__ void huffman_walk_kernel(
 
 extern "C" int pactpu_huffman_walk(
     const uint32_t* words, const uint32_t* l1, const uint32_t* l1b,
-    const uint32_t* l2, const int32_t* n_lines_host, int32_t* code,
+    const uint32_t* l2, const int32_t* n_lines, int32_t* code,
     int32_t* basf, int32_t* soff, int32_t* misc, int rows, int n_words,
     int n_bands, int total_lines, int n_tab, int l2_width, int n_scale_bits,
     int n_mant_size_bits, int n_table_id_bits, cudaStream_t stream) {
-  if (n_bands > kWalkMaxBands) return static_cast<int>(cudaErrorInvalidValue);
-  Bands bands;
-  for (int b = 0; b < kWalkMaxBands; ++b)
-    bands.n[b] = b < n_bands ? n_lines_host[b] : 0;
-  // what goes into shared memory: the tables if they leave room for a warp,
-  // then the words of as many warps' rows as fit beside them
+  // what goes into shared memory: the band layout, the tables if they
+  // leave room for a warp, then the words of as many warps' rows as fit
+  // beside them
   const size_t stage = sizeof(uint32_t) * kStage;
   const size_t row_words =
       sizeof(uint32_t) * (static_cast<size_t>(n_words) + 3);
+  const size_t bands = sizeof(uint32_t) * band_words(n_bands);
   const size_t tables =
       sizeof(uint32_t) * static_cast<size_t>(n_tab) * (kRootSize + kSideSize);
-  const bool shared_root = tables + stage <= kMaxShared;
-  const size_t fixed = shared_root ? tables : 0;
+  if (bands + stage > kMaxShared)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool shared_root = bands + tables + stage <= kMaxShared;
+  const size_t fixed = bands + (shared_root ? tables : 0);
   int warps = kMaxWarps;
   while (warps > 1 && fixed + warps * (stage + row_words) > kMaxShared)
     warps /= 2;
@@ -328,7 +338,7 @@ extern "C" int pactpu_huffman_walk(
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   kernel<<<(rows + warps - 1) / warps, 32 * warps, smem, stream>>>(
-      words, l1, l1b, l2, bands, code, basf, soff, misc, rows, n_words,
+      words, l1, l1b, l2, n_lines, code, basf, soff, misc, rows, n_words,
       n_bands, total_lines, n_tab, l2_width, n_scale_bits, n_mant_size_bits,
       n_table_id_bits);
   return static_cast<int>(cudaGetLastError());

@@ -10,10 +10,6 @@
 
 #include <cuda_runtime.h>
 
-// K5 takes the band layout by value: at most this many bands
-// (kernels.WALK_MAX_BANDS).
-constexpr int kWalkMaxBands = 64;
-
 extern "C" {
 
 // K1: out[r, l] = the width[r, l]-bit field at bit off[r, l] of row r's
@@ -22,12 +18,18 @@ int pactpu_extract_codes(const uint32_t* words, const int32_t* off,
                          const int32_t* width, int32_t* out, int rows,
                          int n_words, int n_lines, cudaStream_t stream);
 
-// K2: greedy water-filling bit allocation per row (n_bands <= 32).
+// K2: greedy water-filling bit allocation per row (n_bands <= 1024), in
+// float32 and in float64.
 int pactpu_water_fill(const int32_t* total_bits, const float* smr,
                       const uint8_t* lrms, const int32_t* n_lines,
                       int32_t* bits, int32_t* leftover, int rows,
                       int n_bands, int max_mant_bits, float ms_stop,
                       float lr_stop, cudaStream_t stream);
+int pactpu_water_fill_f64(const int32_t* total_bits, const double* smr,
+                          const uint8_t* lrms, const int32_t* n_lines,
+                          int32_t* bits, int32_t* leftover, int rows,
+                          int n_bands, int max_mant_bits, double ms_stop,
+                          double lr_stop, cudaStream_t stream);
 
 // K3: out[r, w] = sum (mod 2^32) of part0[r, j] over items with w0 == w and
 // of part1[r, j] over items with w0 + 1 == w; out-of-range words dropped.
@@ -36,20 +38,24 @@ int pactpu_pack_words(const uint32_t* part0, const uint32_t* part1,
                       int n_words, cudaStream_t stream);
 
 // K4: upslope masking-intensity sum per (row, line); bark and zvec must be
-// ascending.
+// ascending; in float32 and in float64.
 int pactpu_spread_up(const float* iprime, const float* mspl,
                      const float* bark, const float* zvec, float* out,
                      int rows, int n_maskers, int n_lines,
                      cudaStream_t stream);
+int pactpu_spread_up_f64(const double* iprime, const double* mspl,
+                         const double* bark, const double* zvec, double* out,
+                         int rows, int n_maskers, int n_lines,
+                         cudaStream_t stream);
 
 // K5: per-row Huffman bit-walk through the two-level LUT (l1 [n_tab, 2048],
-// l1b [n_tab, 128], l2 [n_tab, l2_width]); n_lines_host is a HOST array of
+// l1b [n_tab, 128], l2 [n_tab, l2_width]); n_lines is a device array of
 // n_bands line counts.  Writes code [rows, total_lines] (every line, zero
 // where a row's band has no bits), basf and soff [rows, n_bands], misc
 // [rows, 5].
 int pactpu_huffman_walk(const uint32_t* words, const uint32_t* l1,
                         const uint32_t* l1b, const uint32_t* l2,
-                        const int32_t* n_lines_host, int32_t* code,
+                        const int32_t* n_lines, int32_t* code,
                         int32_t* basf, int32_t* soff, int32_t* misc, int rows,
                         int n_words, int n_bands, int total_lines, int n_tab,
                         int l2_width, int n_scale_bits, int n_mant_size_bits,
@@ -62,5 +68,26 @@ int pactpu_spread(const float* mspl, const float* lev, const float* bark,
                   const float* valid, const float* drop, const float* zvec,
                   float* out, int rows, int n_slots, int n_lines,
                   cudaStream_t stream);
+
+// K7: the exact serial bit reservoir over a chunk's blocks (smr [blocks,
+// channels, n_bands], lrms [blocks, n_bands], cost [blocks, channels,
+// n_bands, 17, n_tab]; channels 1 or 2, n_bands <= 1024, n_tab <= 16) for
+// its n_valid first blocks, from carry_in (deposit, extra) to carry_out;
+// extras [blocks] = each block's channel-0 extra bits, 0 past n_valid; in
+// float32 and in float64 (the type of the SMRs and of the total's sum).
+int pactpu_exact_scan(const float* smr, const uint8_t* lrms,
+                      const int32_t* cost, const int32_t* n_lines,
+                      const int32_t* carry_in, int32_t* carry_out,
+                      int32_t* extras, int blocks, int n_valid, int channels,
+                      int n_bands, int n_tab, double budget, int max_mant,
+                      double ms_stop, double lr_stop, int tid_bits,
+                      int divisor, cudaStream_t stream);
+int pactpu_exact_scan_f64(const double* smr, const uint8_t* lrms,
+                          const int32_t* cost, const int32_t* n_lines,
+                          const int32_t* carry_in, int32_t* carry_out,
+                          int32_t* extras, int blocks, int n_valid,
+                          int channels, int n_bands, int n_tab, double budget,
+                          int max_mant, double ms_stop, double lr_stop,
+                          int tid_bits, int divisor, cudaStream_t stream);
 
 }  // extern "C"

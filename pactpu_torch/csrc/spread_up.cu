@@ -47,6 +47,12 @@
 // operations, so it has the plain version's bits up to exp2f's rounding;
 // the sum runs in masker order with a fused multiply-add, not in the plain
 // version's order.
+//
+// The float64 form (precision="f64", where pactpu runs its XLA loop in
+// float64, psycho.py:247) is the same kernel on double: a masker is three
+// doubles, every exponent takes the double exp2 (ex2.approx is float32
+// only, and the -126 shortcut has no double counterpart), the terms use the
+// plain version's unfused double operations.
 
 #include <math.h>
 
@@ -61,48 +67,82 @@ constexpr int kSpans = 4;                       // 32-line spans a warp owns
 constexpr int kLineTile = 32 * kSpans * kWarps; // lines a block covers a pass
 // log2(10) / 10, the constant of pactpu/ops/pallas_ops.py:34 in float32
 constexpr float kLog2_10_over_10 = 0.33219280948873623f;
+// the same in float64, as the plain version holds it (numpy's log2(10) / 10)
+constexpr double kLog2_10_over_10_f64 = 0.3321928094887362;
 
 // 14 bark at the steepest slope, log2(10)/10 * -27 a bark, is an exponent
 // of -125.6: above exp2f's denormal range, which begins at -126
 constexpr float kDeepBark = 14.0f;
 
+// A compacted masker: {bark, iprime, slope}; float4 (one 16-byte load) or
+// three doubles.
+template <typename T> struct Masker;
+template <> struct Masker<float> { using type = float4; };
+template <> struct Masker<double> { struct type { double x, y, z; }; };
+
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+// 2^x: exp2f, or its bare instruction where no x lies below -126; exp2 in
+// double
+template <bool kDeep>
+__device__ __forceinline__ float exp2_term(float x) {
+  float e;
+  if (kDeep) {
+    e = exp2f(x);
+  } else {
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(x));
+  }
+  return e;
+}
+template <bool kDeep>
+__device__ __forceinline__ double exp2_term(double x) {
+  return exp2(x);
+}
+
 // The sums of spans I0.. over the maskers [begin, end); kDeep: some exponent
 // may lie below -126.
-template <int I0, bool kDeep>
-__device__ __forceinline__ void accumulate(const float4* __restrict__ s_m,
-                                           int begin, int end,
-                                           const float (&zv)[kSpans],
-                                           float (&acc)[kSpans]) {
+template <int I0, bool kDeep, typename T>
+__device__ __forceinline__ void accumulate(
+    const typename Masker<T>::type* __restrict__ s_m, int begin, int end,
+    const T (&zv)[kSpans], T (&acc)[kSpans]) {
   for (int j = begin; j < end; ++j) {
-    const float4 m = s_m[j];                    // {bark, iprime, slope, -}
+    const auto m = s_m[j];                      // {bark, iprime, slope}
 #pragma unroll
     for (int i = I0; i < kSpans; ++i) {
-      const float dz = __fsub_rn(zv[i], m.x);
-      const float x = __fmul_rn(m.z, __fsub_rn(dz, 0.5f));
-      float e;
-      if (kDeep) {
-        e = exp2f(x);
-      } else {
-        asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(x));
-      }
-      if (dz > 0.5f) acc[i] = fmaf(m.y, e, acc[i]);
+      const T dz = sub_rn(zv[i], T(m.x));
+      const T x = mul_rn(T(m.z), sub_rn(dz, T(0.5)));
+      const T e = exp2_term<kDeep>(x);
+      if (dz > T(0.5)) acc[i] = fma(T(m.y), e, acc[i]);
     }
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-spread_up_kernel(const float* __restrict__ iprime,
-                 const float* __restrict__ mspl,
-                 const float* __restrict__ bark,
-                 const float* __restrict__ zvec, float* __restrict__ out,
-                 int n_maskers, int n_lines) {
-  extern __shared__ float4 s_m[];               // the row's peaks, compacted
+spread_up_kernel(const T* __restrict__ iprime, const T* __restrict__ mspl,
+                 const T* __restrict__ bark, const T* __restrict__ zvec,
+                 T* __restrict__ out, int n_maskers, int n_lines) {
+  using M = typename Masker<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  M* s_m = reinterpret_cast<M*>(smem);          // the row's peaks, compacted
   __shared__ int s_cnt[kWarps];
+  constexpr bool kDouble = sizeof(T) == 8;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   const int64_t row = blockIdx.x;
-  const float* ip_r = iprime + row * n_maskers;
-  const float* ms_r = mspl + row * n_maskers;
+  const T* ip_r = iprime + row * n_maskers;
+  const T* ms_r = mspl + row * n_maskers;
 
   // compaction: warp w counts, then writes, the peaks of its bins
   const int seg = (n_maskers + kThreads - 1) / kThreads * 32;
@@ -110,7 +150,7 @@ spread_up_kernel(const float* __restrict__ iprime,
   int mine = 0;
   for (int k0 = k_begin; k0 < k_begin + seg; k0 += 32) {
     const int k = k0 + lane;
-    mine += __popc(__ballot_sync(kFull, k < n_maskers && ip_r[k] != 0.0f));
+    mine += __popc(__ballot_sync(kFull, k < n_maskers && ip_r[k] != T(0)));
   }
   if (lane == 0) s_cnt[warp] = mine;
   __syncthreads();
@@ -121,15 +161,17 @@ spread_up_kernel(const float* __restrict__ iprime,
   }
   for (int k0 = k_begin; k0 < k_begin + seg; k0 += 32) {
     const int k = k0 + lane;
-    const float ip = k < n_maskers ? ip_r[k] : 0.0f;
-    const bool peak = ip != 0.0f;
+    const T ip = k < n_maskers ? ip_r[k] : T(0);
+    const bool peak = ip != T(0);
     const unsigned m = __ballot_sync(kFull, peak);
     if (peak) {
-      const float lev = __fmul_rn(0.367f, fmaxf(__fsub_rn(ms_r[k], 40.0f),
-                                                0.0f));
-      s_m[at + __popc(m & ((1u << lane) - 1u))] = make_float4(
-          bark[k], ip, __fmul_rn(kLog2_10_over_10, __fsub_rn(lev, 27.0f)),
-          0.0f);
+      const T lev = mul_rn(T(0.367), fmax(sub_rn(ms_r[k], T(40)), T(0)));
+      const T c = kDouble ? T(kLog2_10_over_10_f64) : T(kLog2_10_over_10);
+      M rec;
+      rec.x = bark[k];
+      rec.y = ip;
+      rec.z = mul_rn(c, sub_rn(lev, T(27)));
+      s_m[at + __popc(m & ((1u << lane) - 1u))] = rec;
     }
     at += __popc(m);
   }
@@ -139,35 +181,36 @@ spread_up_kernel(const float* __restrict__ iprime,
     int base[kSpans] = {l0 + 32 * warp, l0 + 32 * (2 * kWarps - 1 - warp),
                         l0 + 32 * (2 * kWarps + warp),
                         l0 + 32 * (4 * kWarps - 1 - warp)};
-    float zv[kSpans], z_last[kSpans], acc[kSpans];
+    T zv[kSpans], z_last[kSpans], acc[kSpans];
 #pragma unroll
     for (int i = 0; i < kSpans; ++i) {
       const int l = base[i] + lane;
-      zv[i] = l < n_lines ? zvec[l] : 0.0f;
+      zv[i] = l < n_lines ? zvec[l] : T(0);
       // a span past the last line reaches no masker
       z_last[i] = base[i] < n_lines ? zvec[min(base[i] + 31, n_lines - 1)]
-                                    : -INFINITY;
-      acc[i] = 0.0f;
+                                    : T(-INFINITY);
+      acc[i] = T(0);
     }
     // end[i]: the maskers that reach span i's last line, a prefix; deep:
     // those whose upslope runs more than kDeepBark to the warp's last line
     int end[kSpans] = {0, 0, 0, 0};
     int deep = 0;
-    float z_top = -INFINITY;
+    T z_top = T(-INFINITY);
 #pragma unroll
-    for (int i = 0; i < kSpans; ++i) z_top = fmaxf(z_top, z_last[i]);
+    for (int i = 0; i < kSpans; ++i) z_top = fmax(z_top, z_last[i]);
     for (int j = lane; j < count; j += 32) {
-      const float b = s_m[j].x;
-      deep += __fsub_rn(__fsub_rn(z_top, b), 0.5f) > kDeepBark;
+      const T b = s_m[j].x;
+      deep += kDouble || sub_rn(sub_rn(z_top, b), T(0.5)) > T(kDeepBark);
 #pragma unroll
       for (int i = 0; i < kSpans; ++i)
-        end[i] += __fsub_rn(z_last[i], b) > 0.5f;
+        end[i] += sub_rn(z_last[i], b) > T(0.5);
     }
 #pragma unroll
     for (int i = 0; i < kSpans; ++i) end[i] = __reduce_add_sync(kFull, end[i]);
     deep = __reduce_add_sync(kFull, deep);
 
-    // masker order throughout: each stretch first its deep part
+    // masker order throughout: each stretch first its deep part (in
+    // double every masker is "deep": one exp2 for all)
     accumulate<0, true>(s_m, 0, min(end[0], deep), zv, acc);
     accumulate<0, false>(s_m, deep, end[0], zv, acc);
     accumulate<1, true>(s_m, end[0], min(end[1], deep), zv, acc);
@@ -184,20 +227,37 @@ spread_up_kernel(const float* __restrict__ iprime,
   }
 }
 
+template <typename T>
+int launch(const T* iprime, const T* mspl, const T* bark, const T* zvec,
+           T* out, int rows, int n_maskers, int n_lines,
+           cudaStream_t stream) {
+  const size_t smem =
+      sizeof(typename Masker<T>::type) * static_cast<size_t>(n_maskers);
+  if (smem > 48 * 1024) {       // past the default limit of a block
+    const cudaError_t rc = cudaFuncSetAttribute(
+        spread_up_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  spread_up_kernel<T><<<rows, kThreads, smem, stream>>>(
+      iprime, mspl, bark, zvec, out, n_maskers, n_lines);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int pactpu_spread_up(const float* iprime, const float* mspl,
                                 const float* bark, const float* zvec,
                                 float* out, int rows, int n_maskers,
                                 int n_lines, cudaStream_t stream) {
-  const size_t smem = sizeof(float4) * static_cast<size_t>(n_maskers);
-  if (smem > 48 * 1024) {       // past the default limit of a block
-    const cudaError_t rc = cudaFuncSetAttribute(
-        spread_up_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  }
-  spread_up_kernel<<<rows, kThreads, smem, stream>>>(
-      iprime, mspl, bark, zvec, out, n_maskers, n_lines);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(iprime, mspl, bark, zvec, out, rows, n_maskers,
+                       n_lines, stream);
+}
+
+extern "C" int pactpu_spread_up_f64(const double* iprime, const double* mspl,
+                                    const double* bark, const double* zvec,
+                                    double* out, int rows, int n_maskers,
+                                    int n_lines, cudaStream_t stream) {
+  return launch<double>(iprime, mspl, bark, zvec, out, rows, n_maskers,
+                        n_lines, stream);
 }

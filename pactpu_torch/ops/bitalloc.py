@@ -22,13 +22,14 @@ def water_fill(total_bits: torch.Tensor, max_mant_bits: int,
     """Batched water-filling.
 
     total_bits: int[R] (int(bitBudget + extraBits) per row); n_lines:
-    int[bands]; smr: f32[R, bands]; lrms: bool[R, bands].  Returns
-    (bits i32[R, bands], leftover i32[R]) where leftover is the unspent
-    budget after the 1-bit refund."""
+    int[bands]; smr: f32[R, bands] (f64 stays f64: the fill then runs in
+    float64); lrms: bool[R, bands].  Returns (bits i32[R, bands], leftover
+    i32[R]) where leftover is the unspent budget after the 1-bit refund."""
+    if smr.dtype != torch.float64:
+        smr = smr.to(torch.float32)
     return kernels.water_fill(
         total_bits.to(torch.int32).contiguous(), int(max_mant_bits),
-        n_lines.to(torch.int32).contiguous(),
-        smr.to(torch.float32).contiguous(),
+        n_lines.to(torch.int32).contiguous(), smr.contiguous(),
         lrms.to(torch.bool).contiguous(), ms_stop, lr_stop)
 
 
@@ -43,7 +44,7 @@ def lrms_decision_bitalloc(smr_lr: torch.Tensor, smr_ms: torch.Tensor,
     stop threshold; a band goes M/S iff its M/S pair costs strictly fewer
     bits x lines than its L/R pair.
 
-    smr_lr/smr_ms: f32[B, 2, bands].  Returns bool[B, bands]."""
+    smr_lr/smr_ms: f32[B, 2, bands] (or f64).  Returns bool[B, bands]."""
     b, _, n_bands = smr_lr.shape
     smr4 = torch.cat([smr_lr.reshape(2 * b, n_bands),
                       smr_ms.reshape(2 * b, n_bands)])

@@ -1,14 +1,19 @@
-"""The port's six hand-written Hopper kernels, their wrappers, their plain
+"""The port's seven hand-written Hopper kernels, their wrappers, their plain
 PyTorch versions and their launch counts.
 
-| kernel            | replaces (in pactpu/ops/)              | source (csrc/)   |
-|-------------------|----------------------------------------|------------------|
-| extract_codes     | pallas_ops._extract_codes_kernel       | extract_codes.cu |
-| water_fill        | pallas_ops._water_fill_kernel          | water_fill.cu    |
-| pack_words        | pallas_ops._pack_words_kernel          | pack_words.cu    |
-| spread_maskers_up | pallas_ops._make_spread_up_kernel      | spread_up.cu     |
-| huffman_walk      | huffman_walk._walk_kernel              | huffman_walk.cu  |
-| spread_maskers    | pallas_ops._spread_kernel              | spread.cu        |
+| kernel            | replaces (in pactpu/)                 | source (csrc/)   |
+|-------------------|---------------------------------------|------------------|
+| extract_codes     | ops/pallas_ops._extract_codes_kernel  | extract_codes.cu |
+| water_fill        | ops/pallas_ops._water_fill_kernel     | water_fill.cu    |
+| pack_words        | ops/pallas_ops._pack_words_kernel     | pack_words.cu    |
+| spread_maskers_up | ops/pallas_ops._make_spread_up_kernel | spread_up.cu     |
+| huffman_walk      | ops/huffman_walk._walk_kernel         | huffman_walk.cu  |
+| spread_maskers    | ops/pallas_ops._spread_kernel         | spread.cu        |
+| exact_scan        | codec/exact.py:152, a lax.scan        | exact_scan.cu    |
+
+water_fill, spread_maskers_up and exact_scan also have a float64 form (a
+second C function of the same source, counted under the same name), for
+Engine(precision="f64").
 
 The CUDA sources are compiled by hand with nvcc for sm_90a (one nvcc per
 source, in parallel) into one shared library with a plain C interface
@@ -26,6 +31,8 @@ other.  u32 bit patterns travel as int32 tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import os
 import shutil
 import subprocess
@@ -39,7 +46,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("extract_codes.cu", "water_fill.cu", "pack_words.cu",
-           "spread_up.cu", "huffman_walk.cu", "spread.cu")
+           "spread_up.cu", "huffman_walk.cu", "spread.cu", "exact_scan.cu")
+# headers the sources include (a change rebuilds the library)
+HEADERS = ("kernels.h", "water_fill_step.cuh")
 LIB_PATH = os.path.join(BUILD_DIR, "libpactpu_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "kernels_build.log")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,17 +57,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches of each kernel since the last reset_launches(); the plain
 # versions never count
 LAUNCHES = {"extract_codes": 0, "water_fill": 0, "pack_words": 0,
-            "spread_maskers_up": 0, "huffman_walk": 0, "spread_maskers": 0}
+            "spread_maskers_up": 0, "huffman_walk": 0, "spread_maskers": 0,
+            "exact_scan": 0}
 
 # root peek bits of the Huffman walk's two-level LUT (huffman_walk.cu
 # carries the same constant)
 WALK_ROOT_BITS = 11
-WALK_MAX_BANDS = 64     # the kernel takes the band layout by value
+# K2 and K7 hold up to 32 bands a lane of their warp (past 4, the wide form
+# of water_fill_step.cuh)
+MAX_FILL_BANDS = 1024
+# K7's Huffman tables (table id bits 4: 15 tables and the escape-only id 0)
+MAX_SCAN_TABLES = 16
+# the reference's key of a retired band in the arg-max (pactpu/ops/
+# bitalloc.py:_NEG, a float32 constant in either precision)
+_NEG = float(np.float32(-1e30))
 
 _LOG2_10_OVER_10 = float(np.log2(10.0) / 10.0)
 _MASK32 = 0xFFFFFFFF
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_double
+_SCAN_ARGS = [_P] * 7 + [_I] * 5 + [_D, _I, _D, _D, _I, _I, _P]
 # kernel name -> (C symbol in csrc/kernels.h, its argument types); every
 # function ends with the stream and returns cudaGetLastError()
 _C_FUNCS = {
@@ -69,7 +88,16 @@ _C_FUNCS = {
     "spread_maskers_up": ("pactpu_spread_up", [_P] * 5 + [_I] * 3 + [_P]),
     "huffman_walk": ("pactpu_huffman_walk", [_P] * 9 + [_I] * 9 + [_P]),
     "spread_maskers": ("pactpu_spread", [_P] * 7 + [_I] * 3 + [_P]),
+    "exact_scan": ("pactpu_exact_scan", _SCAN_ARGS),
 }
+# the float64 forms, by the kernel they count under
+_C_FUNCS_F64 = {
+    "water_fill": ("pactpu_water_fill_f64",
+                   [_P] * 6 + [_I] * 3 + [_D] * 2 + [_P]),
+    "spread_maskers_up": ("pactpu_spread_up_f64", [_P] * 5 + [_I] * 3 + [_P]),
+    "exact_scan": ("pactpu_exact_scan_f64", _SCAN_ARGS),
+}
+_FLOATS = (torch.float32, torch.float64)
 
 _lock = threading.Lock()
 _lib = None
@@ -91,14 +119,22 @@ def _nvcc() -> str:
 
 
 def build(csrc_dir: str = CSRC_DIR, lib_path: str = LIB_PATH,
-          log_path: str = BUILD_LOG) -> float:
+          log_path: str = BUILD_LOG, sources=SOURCES) -> float:
     """Compile the kernels' library if it is missing or older than a
     source: one nvcc per source, all started together, then one link.
     Returns the seconds spent (0.0 if the library was current); nvcc's
     output, ptxas register and shared-memory report included, goes to
     log_path.  The defaults are the package's own sources and library;
-    tools/kernel_ab.py builds another checkout's sources beside it."""
-    deps = [os.path.join(csrc_dir, s) for s in SOURCES + ("kernels.h",)]
+    tools/kernel_ab.py builds another checkout's `sources` beside it."""
+    missing = [s for s in sources
+               if not os.path.exists(os.path.join(csrc_dir, s))]
+    if missing:
+        raise FileNotFoundError(f"kernel sources missing from {csrc_dir}: "
+                                + ", ".join(missing))
+    deps = [os.path.join(csrc_dir, s) for s in sources]
+    # (an older checkout's sources include fewer headers)
+    deps += [d for d in (os.path.join(csrc_dir, h) for h in HEADERS)
+             if os.path.exists(d)]
     if (os.path.exists(lib_path) and os.path.getmtime(lib_path)
             >= max(os.path.getmtime(d) for d in deps)):
         return 0.0
@@ -106,9 +142,9 @@ def build(csrc_dir: str = CSRC_DIR, lib_path: str = LIB_PATH,
     os.makedirs(build_dir, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}.tmp"
-    objs = [os.path.join(build_dir, f"{s}.{tag}.o") for s in SOURCES]
+    objs = [os.path.join(build_dir, f"{s}.{tag}.o") for s in sources]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(csrc_dir, s)]
-            for s, obj in zip(SOURCES, objs)]
+            for s, obj in zip(sources, objs)]
     tmp = f"{lib_path}.{tag}"
     t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -135,12 +171,23 @@ def build(csrc_dir: str = CSRC_DIR, lib_path: str = LIB_PATH,
     return seconds
 
 
-def bind(lib_path: str) -> ctypes.CDLL:
-    """Load a kernels' library and declare its C functions' types."""
+def c_symbols() -> list:
+    """Every C function of the kernels' library (csrc/kernels.h)."""
+    return [sym for sym, _ in (*_C_FUNCS.values(), *_C_FUNCS_F64.values())]
+
+
+def bind(lib_path: str, symbols=None) -> ctypes.CDLL:
+    """Load a kernels' library and declare the types of its C functions:
+    all of c_symbols(), or `symbols` (tools/kernel_ab.py names those an
+    older checkout's library has).  A missing one raises."""
     lib = ctypes.CDLL(lib_path)
-    for symbol, argtypes in _C_FUNCS.values():
+    types = dict((*_C_FUNCS.values(), *_C_FUNCS_F64.values()))
+    for symbol in c_symbols() if symbols is None else symbols:
+        if not hasattr(lib, symbol):
+            raise RuntimeError(f"{lib_path} lacks {symbol}: rebuild it from "
+                               "the sources")
         fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
+        fn.argtypes = types[symbol]
         fn.restype = ctypes.c_int
     return lib
 
@@ -156,9 +203,11 @@ def _load():
     return _lib
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+def _check(name: str, t: torch.Tensor, dtype, ndim: int,
            device: torch.device) -> None:
-    if t.dtype != dtype or t.dim() != ndim:
+    """dtype: a torch dtype, or a tuple of the dtypes allowed."""
+    allowed = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in allowed or t.dim() != ndim:
         raise TypeError(f"{name}: expected {dtype} with {ndim} dims, got "
                         f"{t.dtype} with shape {tuple(t.shape)}")
     if t.device != device:
@@ -175,8 +224,9 @@ def _on_cpu(device: torch.device) -> bool:
     return False
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    fn = getattr(_load(), _C_FUNCS[name][0])
+def _launch(name: str, device: torch.device, *args,
+            f64: bool = False) -> None:
+    fn = getattr(_load(), (_C_FUNCS_F64 if f64 else _C_FUNCS)[name][0])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, ctypes.c_void_p(stream))
@@ -248,9 +298,11 @@ def water_fill(total_bits: torch.Tensor, max_mant_bits: int,
     """Greedy water-filling (reference codec/bitalloc.py:129-184), the
     contract of pactpu.ops.bitalloc.water_fill.
 
-    total_bits: i32[R]; n_lines: i32[bands]; smr: f32[R, bands];
-    lrms: bool[R, bands].  Returns (bits i32[R, bands], leftover i32[R]),
-    leftover being the unspent budget after the 1-bit refund.
+    total_bits: i32[R]; n_lines: i32[bands]; smr: f32[R, bands] (or f64,
+    then every comparison and residual is in float64); lrms: bool[R,
+    bands].  Returns (bits i32[R, bands], leftover i32[R]), leftover being
+    the unspent budget after the 1-bit refund.  The kernel takes up to
+    MAX_FILL_BANDS bands.
 
     -0.0 and +0.0 tie (the first band wins).  A NaN SMR is neither checked
     for nor refused; the kernel treats it as the plain version does: the
@@ -259,7 +311,7 @@ def water_fill(total_bits: torch.Tensor, max_mant_bits: int,
     dev = smr.device
     _check("total_bits", total_bits, torch.int32, 1, dev)
     _check("n_lines", n_lines, torch.int32, 1, dev)
-    _check("smr", smr, torch.float32, 2, dev)
+    _check("smr", smr, _FLOATS, 2, dev)
     _check("lrms", lrms, torch.bool, 2, dev)
     rows, n_bands = smr.shape
     if (lrms.shape != smr.shape or total_bits.shape[0] != rows
@@ -268,14 +320,16 @@ def water_fill(total_bits: torch.Tensor, max_mant_bits: int,
     if _on_cpu(dev):
         return water_fill_plain(total_bits, max_mant_bits, n_lines, smr,
                                 lrms, ms_stop, lr_stop)
-    if n_bands > 32:
-        raise ValueError("water_fill kernel: at most 32 bands (one warp)")
+    if n_bands > MAX_FILL_BANDS:
+        raise ValueError(f"water_fill kernel: at most {MAX_FILL_BANDS} "
+                         "bands (32 a lane of one warp)")
     bits = torch.empty((rows, n_bands), dtype=torch.int32, device=dev)
     left = torch.empty(rows, dtype=torch.int32, device=dev)
     if rows:
         _launch("water_fill", dev, _ptr(total_bits), _ptr(smr), _ptr(lrms),
                 _ptr(n_lines), _ptr(bits), _ptr(left), rows, n_bands,
-                int(max_mant_bits), float(ms_stop), float(lr_stop))
+                int(max_mant_bits), float(ms_stop), float(lr_stop),
+                f64=smr.dtype == torch.float64)
     return bits, left
 
 
@@ -283,20 +337,23 @@ def water_fill_plain(total_bits, max_mant_bits, n_lines, smr, lrms,
                      ms_stop=-5.0, lr_stop=-15.0):
     """Plain version of water_fill: the XLA loop of
     pactpu/ops/bitalloc.py:66-119, one greedy step over all rows at a
-    time."""
+    time, in smr's float type."""
     rows, n_bands = smr.shape
+    dt = smr.dtype
     r = torch.arange(rows, device=smr.device)
     bits = torch.zeros((rows, n_bands), dtype=torch.int32, device=smr.device)
     valid = torch.ones((rows, n_bands), dtype=torch.bool, device=smr.device)
     total = total_bits.clone()
+    # the stop thresholds in smr's type, by the candidate's M/S flag
+    thresholds = torch.tensor([lr_stop, ms_stop], dtype=dt, device=smr.device)
     for _ in range(n_bands * (max_mant_bits + 1)):
         active = valid.any(1)
         if not bool(active.any()):
             break       # every later step is a no-op
-        resid = smr - 6.0 * bits.float()
-        cand = torch.argmax(torch.where(valid, resid, -1e30), dim=1)
-        global_resid = (smr - (bits - 1).float() * 6.0).amax(1)
-        stop_thr = torch.where(lrms[r, cand], ms_stop, lr_stop)
+        resid = smr - 6.0 * bits.to(dt)
+        cand = torch.argmax(torch.where(valid, resid, _NEG), dim=1)
+        global_resid = (smr - (bits - 1).to(dt) * 6.0).amax(1)
+        stop_thr = thresholds[lrms[r, cand].long()]
         kill_stop = global_resid < stop_thr
         cost = n_lines[cand]
         can_pay = (total - cost) >= 0
@@ -359,14 +416,16 @@ def spread_maskers_up(iprime: torch.Tensor, mspl: torch.Tensor,
 
     iprime: f32[B, K] peak-masked masker intensities (zero for non-peaks);
     mspl: f32[B, K] masker SPLs (the tonal level term); bark: f32[K] masker
-    barks, zvec: f32[L] line barks, both ascending.  Returns f32[B, L]:
-    sum over maskers k with dz = zvec[l] - bark[k] > 0.5 of
+    barks, zvec: f32[L] line barks, both ascending; all four f32, or all
+    four f64.  Returns [B, L] in their type: sum over maskers k with
+    dz = zvec[l] - bark[k] > 0.5 of
     iprime * 10^((0.367 max(mspl - 40, 0) - 27) (dz - 0.5) / 10)."""
     dev = iprime.device
-    _check("iprime", iprime, torch.float32, 2, dev)
-    _check("mspl", mspl, torch.float32, 2, dev)
-    _check("bark", bark, torch.float32, 1, dev)
-    _check("zvec", zvec, torch.float32, 1, dev)
+    dt = iprime.dtype if iprime.dtype in _FLOATS else torch.float32
+    _check("iprime", iprime, dt, 2, dev)
+    _check("mspl", mspl, dt, 2, dev)
+    _check("bark", bark, dt, 1, dev)
+    _check("zvec", zvec, dt, 1, dev)
     if mspl.shape != iprime.shape or bark.shape[0] != iprime.shape[1]:
         raise ValueError("spread_maskers_up: shapes disagree")
     if _on_cpu(dev):
@@ -374,10 +433,11 @@ def spread_maskers_up(iprime: torch.Tensor, mspl: torch.Tensor,
     rows, k = iprime.shape
     if k > 4096:
         raise ValueError("spread_maskers_up kernel: at most 4096 maskers")
-    out = torch.empty((rows, zvec.shape[0]), dtype=torch.float32, device=dev)
+    out = torch.empty((rows, zvec.shape[0]), dtype=dt, device=dev)
     if out.numel():
         _launch("spread_maskers_up", dev, _ptr(iprime), _ptr(mspl),
-                _ptr(bark), _ptr(zvec), _ptr(out), rows, k, zvec.shape[0])
+                _ptr(bark), _ptr(zvec), _ptr(out), rows, k, zvec.shape[0],
+                f64=dt == torch.float64)
     return out
 
 
@@ -391,7 +451,7 @@ def spread_maskers_up_plain(iprime, mspl, bark, zvec,
     on = dz > 0.5
     up = torch.where(on, dz - 0.5, 0.0)
     lev = 0.367 * torch.clamp(mspl - 40.0, min=0.0)
-    out = torch.zeros((iprime.shape[0], zvec.shape[0]), dtype=torch.float32,
+    out = torch.zeros((iprime.shape[0], zvec.shape[0]), dtype=iprime.dtype,
                       device=iprime.device)
     for s in range(0, iprime.shape[0], chunk):
         ip = iprime[s:s + chunk]
@@ -451,8 +511,6 @@ def huffman_walk(words: torch.Tensor, lut: dict, n_lines,
     if _on_cpu(dev):
         return huffman_walk_plain(words, lut, n_lines, n_scale_bits,
                                   n_mant_size_bits, n_table_id_bits)
-    if len(n_lines) > WALK_MAX_BANDS:
-        raise ValueError(f"huffman_walk kernel: <= {WALK_MAX_BANDS} bands")
     if any(lut[k].data_ptr() % 16 for k in ("l1", "l1b")):
         raise ValueError("huffman_walk kernel: the LUT's tables must be "
                          "16-byte aligned (it copies them 16 bytes at a time)")
@@ -463,14 +521,21 @@ def huffman_walk(words: torch.Tensor, lut: dict, n_lines,
     soff = torch.empty((rows, n_bands), dtype=torch.int32, device=dev)
     misc = torch.empty((rows, 5), dtype=torch.int32, device=dev)
     if rows:
-        bands = (ctypes.c_int32 * n_bands)(*(int(n) for n in n_lines))
+        bands = _band_tensor(tuple(int(n) for n in n_lines), dev)
         _launch("huffman_walk", dev, _ptr(words), _ptr(lut["l1"]),
-                _ptr(lut["l1b"]), _ptr(lut["l2"]), bands, _ptr(code),
+                _ptr(lut["l1b"]), _ptr(lut["l2"]), _ptr(bands), _ptr(code),
                 _ptr(basf), _ptr(soff), _ptr(misc), rows, words.shape[1],
                 n_bands, total, lut["l1"].shape[0], lut["l2"].shape[1],
                 int(n_scale_bits), int(n_mant_size_bits),
                 int(n_table_id_bits))
     return code, basf, soff, misc
+
+
+@functools.lru_cache(maxsize=16)
+def _band_tensor(n_lines: tuple, device: torch.device) -> torch.Tensor:
+    """The band layout's line counts as an int32 tensor on the device (K5
+    stages it in shared memory), uploaded once a layout and device."""
+    return torch.tensor(n_lines, dtype=torch.int32, device=device)
 
 
 def huffman_walk_plain(words, lut, n_lines, n_scale_bits: int,
@@ -590,3 +655,163 @@ def spread_maskers_plain(mspl, lev, bark, valid, drop_db, zvec,
             * valid[c, :, None]
         out[c] = contrib.sum(1)
     return out
+
+
+# -- K7 exact_scan -----------------------------------------------------------
+
+def _scan_check(smr, lrms, cost, n_lines, carry) -> None:
+    dev = smr.device
+    _check("smr", smr, _FLOATS, 3, dev)
+    _check("lrms", lrms, torch.bool, 2, dev)
+    _check("cost", cost, torch.int32, 5, dev)
+    _check("n_lines", n_lines, torch.int32, 1, dev)
+    _check("carry", carry, torch.int32, 1, dev)
+    b, c, n_bands = smr.shape
+    if (lrms.shape != (b, n_bands) or cost.shape[:3] != (b, c, n_bands)
+            or cost.shape[3] != 17 or n_lines.shape[0] != n_bands
+            or carry.shape[0] != 2 or c not in (1, 2)):
+        raise ValueError("exact_scan: shapes disagree")
+
+
+def exact_scan(smr: torch.Tensor, lrms: torch.Tensor, cost: torch.Tensor,
+               n_valid: int, carry: torch.Tensor, budget: float,
+               n_lines: torch.Tensor, max_mant_bits: int, ms_stop: float,
+               lr_stop: float, tid_bits: int, divisor: int):
+    """The exact serial bit reservoir over a chunk's blocks (pactpu/codec/
+    exact.py:extras_scan_body, reference codec/Huffman.py:353-371,
+    codec/codec.py:229, 258-260).
+
+    smr: f32[B, C, bands] (or f64: the fills and the total's sum then run
+    in float64); lrms: bool[B, bands]; cost: i32[B, C, bands, 17, T], the
+    Huffman bits of each band at each allocation under each table
+    (pactpu_torch.codec.exact.cost_table); n_valid: the chunk's real
+    blocks, a prefix (the rest is padding and leaves the carry alone);
+    carry: i32[2] (bitDeposit, extraBits) on the device.  Per block: the
+    withdrawal, channel 0's extra bits, the water-fill of each channel with
+    total = int(budget + extra) in smr's type, channel k's leftover funding
+    channel k + 1, and the deposit of every channel's Huffman savings.
+    Returns (extras i32[B]: channel 0's extra bits, 0 past n_valid; carry'
+    i32[2]), both on the device, with no host round trip."""
+    _scan_check(smr, lrms, cost, n_lines, carry)
+    dev = smr.device
+    b, c, n_bands = smr.shape
+    n_valid = max(0, min(int(n_valid), b))
+    if _on_cpu(dev):
+        return exact_scan_plain(smr, lrms, cost, n_valid, carry, budget,
+                                n_lines, max_mant_bits, ms_stop, lr_stop,
+                                tid_bits, divisor)
+    if n_bands > MAX_FILL_BANDS or cost.shape[4] > MAX_SCAN_TABLES:
+        raise ValueError(f"exact_scan kernel: at most {MAX_FILL_BANDS} "
+                         f"bands and {MAX_SCAN_TABLES} tables")
+    if int(divisor) <= 0:
+        raise ValueError("exact_scan: the withdrawal divisor must be > 0")
+    extras = torch.empty(b, dtype=torch.int32, device=dev)
+    carry_out = torch.empty(2, dtype=torch.int32, device=dev)
+    _launch("exact_scan", dev, _ptr(smr), _ptr(lrms), _ptr(cost),
+            _ptr(n_lines), _ptr(carry), _ptr(carry_out), _ptr(extras), b,
+            n_valid, c, n_bands, cost.shape[4], float(budget),
+            int(max_mant_bits), float(ms_stop), float(lr_stop),
+            int(tid_bits), int(divisor), f64=smr.dtype == torch.float64)
+    return extras, carry_out
+
+
+def water_fill_row_plain(total: int, max_mant_bits: int, n_lines: list,
+                         smr: torch.Tensor, ms: list, ms_stop: float,
+                         lr_stop: float, stats: dict = None):
+    """water_fill_plain on ONE row, its greedy steps a Python loop: the
+    same float values (every residual smr - 6 bits and statistic
+    smr - 6 (bits - 1) computed by torch in smr's type, as water_fill_plain
+    computes them, then compared exactly as Python floats), the same
+    arg-max (the first of the largest, NaN above all) and the same stop
+    rule, without a tensor operation a step.  total: int; n_lines: list of
+    ints; smr: [bands]; ms: list of bools.  Returns (bits list of ints,
+    leftover int); adds the steps taken to stats["steps"] if given."""
+    n = smr.shape[0]
+    dt = smr.dtype
+    width = max_mant_bits + 2
+    k = torch.arange(width, device=smr.device).to(dt)
+    resid_tab = (smr[:, None] - 6.0 * k[None]).tolist()
+    stat_tab = (smr[:, None] - (k[None] - 1.0) * 6.0).tolist()
+    thr = torch.tensor([lr_stop, ms_stop], dtype=dt).tolist()
+
+    def resid(b, nb):           # past the table: a band the dead key chose
+        if nb < width:
+            return resid_tab[b][nb]
+        return float(smr[b] - 6.0 * torch.tensor(nb, dtype=dt))
+
+    def stat(b, nb):
+        if nb < width:
+            return stat_tab[b][nb]
+        return float(smr[b] - torch.tensor(nb - 1, dtype=dt) * 6.0)
+
+    bits, valid = [0] * n, [True] * n
+    for _ in range(n * (max_mant_bits + 1)):
+        if not any(valid):
+            break               # every later step is a no-op
+        if stats is not None:
+            stats["steps"] += 1
+        cand, best = 0, None
+        for b in range(n):
+            v = resid(b, bits[b]) if valid[b] else _NEG
+            if math.isnan(v):
+                cand = b
+                break
+            if best is None or v > best:
+                cand, best = b, v
+        now = [stat(b, bits[b]) for b in range(n)]
+        g = math.nan if any(map(math.isnan, now)) else max(now)
+        kill_stop = g < thr[1 if ms[cand] else 0]
+        can_pay = total - n_lines[cand] >= 0
+        if can_pay:
+            bits[cand] += 1
+            total -= n_lines[cand]
+        if kill_stop or not can_pay or bits[cand] >= max_mant_bits:
+            valid[cand] = False
+    refund = sum(nl for nb, nl in zip(bits, n_lines) if nb == 1)
+    return [0 if nb == 1 else nb for nb in bits], total + refund
+
+
+def exact_scan_plain(smr, lrms, cost, n_valid: int, carry, budget: float,
+                     n_lines, max_mant_bits: int, ms_stop: float,
+                     lr_stop: float, tid_bits: int, divisor: int,
+                     stats: dict = None):
+    """Plain version of exact_scan: the lax.scan step of pactpu/codec/
+    exact.py:152-175 as a loop over the blocks on the host, each channel's
+    fill by water_fill_row_plain, total = int(budget + extra) by torch in
+    smr's type.  stats: a dict whose "steps" and "fills" it adds to (the
+    greedy steps of the chain, the fills)."""
+    _scan_check(smr, lrms, cost, n_lines, carry)
+    dt = smr.dtype
+    b, c, n_bands = smr.shape
+    n_valid = max(0, min(int(n_valid), b))
+    smr_h, lrms_h = smr.cpu(), lrms.cpu().tolist()
+    cost_h = cost.cpu()
+    budget_t = torch.tensor(budget, dtype=dt)
+    nl = [int(n) for n in n_lines.cpu()]
+    bands = torch.arange(n_bands)
+    extras = [0] * b
+    deposit, extra = (int(v) for v in carry.cpu())
+    for t in range(n_valid):
+        take = ((deposit // divisor if deposit > 10 else 0)
+                + (deposit if deposit < 0 else 0))
+        granted = extra + take
+        chain, savings = granted, 0
+        for ch in range(c):
+            total = int((budget_t + torch.tensor(chain, dtype=torch.int32)
+                         .to(dt)).to(torch.int32))          # truncates
+            bits, chain = water_fill_row_plain(
+                total, max_mant_bits, nl, smr_h[t, ch], lrms_h[t], ms_stop,
+                lr_stop, stats)
+            if stats is not None:
+                stats["fills"] += 1
+            band_cost = cost_h[t, ch][bands, torch.tensor(bits)]  # [bands, T]
+            huff_best = int(band_cost.long().sum(0).min())
+            raw = sum(nb * n for nb, n in zip(bits, nl))
+            n_signs = sum(n for nb, n in zip(bits, nl) if nb > 0)
+            savings += raw - (huff_best + n_signs + tid_bits)
+        extras[t] = granted
+        deposit = deposit - take + savings
+        extra = chain
+    return (torch.tensor(extras, dtype=torch.int32, device=smr.device),
+            torch.tensor([deposit, extra], dtype=torch.int32,
+                         device=smr.device))

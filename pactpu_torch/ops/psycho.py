@@ -70,9 +70,10 @@ def _mld_np(f: np.ndarray) -> np.ndarray:
 
 
 @lru_cache(maxsize=8)
-def _consts(n: int, fs: int):
-    """Static per-line/per-bin float32 tables for window size n (n//2
-    lines/bins), array for array pactpu.ops.psycho._consts(n, fs):
+def _consts(n: int, fs: int, dtype_name: str = "float32"):
+    """Static per-line/per-bin tables for window size n (n//2 lines/bins),
+    in float32 or float64, array for array
+    pactpu.ops.psycho._consts(n, fs, dtype_name):
     (quiet_i, zvec, bin_bark, mld, nonup) — threshold-in-quiet intensity
     and bark of the MDCT lines, bark of the FFT masker bins on the
     reference's integer frequency grid (Q4), the MLD weighting, and the
@@ -89,16 +90,17 @@ def _consts(n: int, fs: int):
     dz = zvec[None, :] - bin_bark[:, None]         # [bins, lines]
     nonup = np.where(np.abs(dz) <= 0.5, 1.0,
                      np.where(dz < -0.5, 10.0 ** (2.7 * dz + 1.35), 0.0))
-    return tuple(np.asarray(a, np.float32)
+    return tuple(np.asarray(a, np.dtype(dtype_name))
                  for a in (quiet_i, zvec, bin_bark, mld, nonup))
 
 
 def masker_levels(x: torch.Tensor, hann: torch.Tensor):
     """Per-bin masker SPLs and the peak mask for a batch of blocks.
 
-    x: f32[..., N] time blocks carrying their window state (one further
-    Hann window is applied here, as in reference calcBTHR psychoac.py:428);
-    hann: f32[N].  Returns (mspl f32[..., N/2], peak bool[..., N/2])."""
+    x: f32[..., N] (or f64) time blocks carrying their window state (one
+    further Hann window is applied here, as in reference calcBTHR
+    psychoac.py:428); hann: [N] in x's dtype.  Returns (mspl [..., N/2] in
+    x's dtype, peak bool[..., N/2])."""
     n = x.shape[-1]
     half = n // 2
     spec = torch.fft.rfft(x * hann)[..., :half]
@@ -117,7 +119,7 @@ def masker_levels(x: torch.Tensor, hann: torch.Tensor):
     idx = torch.arange(half, device=x.device)
     hi = cs[..., torch.clamp(idx + 2, max=half - 1)]
     lo = torch.where(idx >= 4, cs[..., torch.clamp(idx - 4, min=0)], 0.0)
-    win = torch.where(idx >= 3, hi - lo, 0.0).float()
+    win = torch.where(idx >= 3, hi - lo, 0.0).to(x.dtype)
     scale8 = (8.0 / 3.0) * 4.0 / float(n) ** 2
     return spl(scale8 * win), peak
 
@@ -328,9 +330,10 @@ def calc_smrs(sine_windowed: torch.Tensor, scaled_lines: torch.Tensor,
     sine_windowed: f32[R, N]; scaled_lines: f32[R, N/2];
     overall_scale: i32[R].  Returns f32[R, bands]."""
     drop = torch.full((sine_windowed.shape[0],), 15.0,
-                      device=sine_windowed.device)
+                      dtype=sine_windowed.dtype, device=sine_windowed.device)
     thr = threshold_for_mode(sine_windowed, drop, psy, fs, peak_mode)
-    true_lines = scaled_lines * q.exp2i(-overall_scale)[..., None]
+    true_lines = scaled_lines * q.exp2i(-overall_scale,
+                                        scaled_lines.dtype)[..., None]
     return band_max(spl(4.0 * true_lines * true_lines) - thr, lay, fill=0.0)
 
 
@@ -348,7 +351,7 @@ def six_variants(sine_windowed: torch.Tensor, hann: torch.Tensor):
     stack = torch.stack([sine_windowed[:, 0], sine_windowed[:, 1], ms_m,
                          ms_s, hann * ms_m, hann * ms_s], dim=1)
     drops = torch.tensor([15.0, 15.0, 15.0, 15.0, 0.0, 0.0],
-                         device=stack.device).repeat(b)
+                         dtype=stack.dtype, device=stack.device).repeat(b)
     return stack.reshape(b * 6, n), drops
 
 

@@ -20,20 +20,60 @@ with it given the same float inputs (the third is in pcm16_to_float):
 Both are plain tensor ops, identical on the CPU and on the card.  Every
 `floor` stays a floor, every float->int cast truncates, and signs are read
 with `signbit`, so -0.0 is negative (quantize.py:54,165,208).
+
+Under float64 (precision="f64", the reference under JAX's x64 mode) the
+same three details hold one level up, and the helpers follow the dtype of
+their operands:
+
+- ``2**k`` is the correctly rounded exp(float64(ln2 * k)), which is not the
+  exact power of two (it is one ulp off at most k); ``exp2i`` reads it from
+  a table of those values for k in [-1100, 1100] (past float64's range at
+  both ends, subnormal results flushed to zero as the reference does),
+  computed once a device with 50 decimal digits (Python's decimal module).
+- The fused multiply-add has no wider type to round from, so ``fma``
+  computes it from error-free transformations (Dekker's product and
+  Knuth's sum): the exact product and sum, rounded once, except in the
+  rare case where the rounding of the error terms decides a tie.
+- ``/ 65535`` is again a product with the float64 reciprocal.
 """
 
 from __future__ import annotations
+
+from decimal import Decimal, localcontext
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 _LN2_F32 = float(np.float32(np.log(2.0)))
 _INV_65535 = float(np.float32(1.0) / np.float32(65535.0))
+_INV_65535_F64 = 1.0 / 65535.0
+# the exponents of the float64 table of exp2i
+_EXP2_LO, _EXP2_HI = -1100, 1100
+# Veltkamp's splitting constant for float64, 2^27 + 1
+_SPLIT = 134217729.0
 
 
-def exp2i(e: torch.Tensor) -> torch.Tensor:
-    """2**e as float32 for an integer tensor e, with the reference's
-    rounding (see the module docstring)."""
+@lru_cache(maxsize=8)
+def _exp2_table_f64(device: torch.device) -> torch.Tensor:
+    """exp(float64(ln2 * k)) correctly rounded to float64, k in [_EXP2_LO,
+    _EXP2_HI]: the reference's float64 2**k (module docstring)."""
+    ln2 = float(np.log(2.0))
+    with localcontext() as ctx:
+        ctx.prec = 50
+        vals = [float(Decimal(k * ln2).exp())
+                for k in range(_EXP2_LO, _EXP2_HI + 1)]
+    # the reference flushes subnormal results to zero
+    vals = [v if v >= np.finfo(np.float64).tiny else 0.0 for v in vals]
+    return torch.tensor(vals, dtype=torch.float64, device=device)
+
+
+def exp2i(e: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """2**e as `dtype` (float32 or float64) for an integer tensor e, with
+    the reference's rounding (see the module docstring)."""
+    if dtype == torch.float64:
+        k = torch.clamp(e.long(), _EXP2_LO, _EXP2_HI) - _EXP2_LO
+        return _exp2_table_f64(e.device)[k]
     t = e.to(torch.float32) * _LN2_F32
     return torch.exp(t.double()).float()
 
@@ -43,6 +83,34 @@ def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     b = b.double() if torch.is_tensor(b) else float(b)
     c = c.double() if torch.is_tensor(c) else float(c)
     return (a.double() * b + c).float()
+
+
+def _split(x: torch.Tensor):
+    """Veltkamp's split of float64 x into two 26-bit halves, hi + lo = x."""
+    t = _SPLIT * x
+    hi = t - (t - x)
+    return hi, x - hi
+
+
+def fma64(a: torch.Tensor, b, c) -> torch.Tensor:
+    """a * b + c in float64 with one rounding of the exact product and sum
+    (module docstring): Dekker's product p + e = a * b exactly, Knuth's sum
+    s + t = p + c exactly, then s + (t + e)."""
+    b = b if torch.is_tensor(b) else torch.full_like(a, float(b))
+    c = c if torch.is_tensor(c) else float(c)
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    t = (p - (s - bb)) + (c - bb)
+    return s + (t + e)
+
+
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """a * b + c rounded once, in a's dtype (float32 or float64)."""
+    return fma64(a, b, c) if a.dtype == torch.float64 else fma32(a, b, c)
 
 
 def _shl1(n: torch.Tensor) -> torch.Tensor:
@@ -56,9 +124,9 @@ def quantize_uniform(x: torch.Tensor, nbits: torch.Tensor) -> torch.Tensor:
     """Sign-magnitude midtread uniform quantize to int32 codes
     (reference vQuantizeUniform, codec/quantize.py:91-117)."""
     a = torch.abs(x)
-    largest = exp2i(nbits) - 1.0                        # 2^R - 1
+    largest = exp2i(nbits, a.dtype) - 1.0               # 2^R - 1
     sign_mask = _shl1(nbits - 1)
-    code = torch.floor(fma32(largest, a, 1.0) * 0.5).to(torch.int32)
+    code = torch.floor(fma(largest, a, 1.0) * 0.5).to(torch.int32)
     code = torch.where(a >= 1.0, sign_mask - 1, code)   # overload level
     code = torch.where(torch.signbit(x), code + sign_mask, code)
     return torch.where(nbits <= 0, 0, code)
@@ -91,8 +159,8 @@ def bfp_mantissa(x: torch.Tensor, scale: torch.Tensor, n_scale_bits: int,
     a = torch.abs(x)
     # floor(((2^R-1)a + 1) / 2^(L-scale+1)) restructured for f32 precision,
     # as the reference does: floor(a*2^(nmant+scale-1) + (1-a)*2^(scale-L-1))
-    low = (1.0 - a) * exp2i(scale - largest_scale - 1)
-    mag = torch.floor(fma32(a, exp2i(nmant + scale - 1), low)).to(
+    low = (1.0 - a) * exp2i(scale - largest_scale - 1, a.dtype)
+    mag = torch.floor(fma(a, exp2i(nmant + scale - 1, a.dtype), low)).to(
         torch.int32)
     # overload: Q clipped to 2^(R-1)-1 then shifted
     clip_mag = torch.bitwise_right_shift(_shl1(r - 1) - 1,
@@ -104,10 +172,11 @@ def bfp_mantissa(x: torch.Tensor, scale: torch.Tensor, n_scale_bits: int,
 
 
 def bfp_dequantize(scale: torch.Tensor, code: torch.Tensor,
-                   n_scale_bits: int, nmant: torch.Tensor) -> torch.Tensor:
+                   n_scale_bits: int, nmant: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Inverse of bfp_mantissa with the reference's half-step reconstruction
     offset `1 << (L - scale - 1)` added when scale < L and magnitude > 0
-    (reference codec/quantize.py:345-376).  Returns float32."""
+    (reference codec/quantize.py:345-376).  Returns `dtype`."""
     largest_scale = (1 << n_scale_bits) - 1
     r = nmant + largest_scale
     sign_mask = _shl1(nmant - 1)
@@ -115,23 +184,25 @@ def bfp_dequantize(scale: torch.Tensor, code: torch.Tensor,
     mag = torch.where(neg, code - sign_mask, code)
     shift = largest_scale - scale
     half = torch.where((scale < largest_scale) & (mag > 0),
-                       exp2i(shift - 1), 0.0)
-    num = fma32(mag.to(torch.float32), exp2i(shift), half)
-    val = 2.0 * num / (exp2i(r) - 1.0)
+                       exp2i(shift - 1, dtype), 0.0)
+    num = fma(mag.to(dtype), exp2i(shift, dtype), half)
+    val = 2.0 * num / (exp2i(r, dtype) - 1.0)
     val = torch.where(neg, -val, val)
     return torch.where(nmant <= 0, 0.0, val)
 
 
-def pcm16_to_float(codes: torch.Tensor) -> torch.Tensor:
-    """int16 PCM -> float32 signed fractions via the reference's
+def pcm16_to_float(codes: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int16 PCM -> `dtype` signed fractions via the reference's
     sign-magnitude 16-bit dequantizer (reference codec/pcmfile.py:89-98):
     value = sign * 2*(|code| mod 2^15) / (2^16 - 1); -32768 maps to 0.0."""
     c = codes.to(torch.int32)
     mag = torch.abs(c) & 0x7FFF
     neg = (c < 0) & (mag > 0)
     # the reference's compiler turns the division by the constant into a
-    # product with its float32 reciprocal; so does this
-    val = 2.0 * mag.to(torch.float32) * _INV_65535
+    # product with its reciprocal; so does this
+    inv = _INV_65535_F64 if dtype == torch.float64 else _INV_65535
+    val = 2.0 * mag.to(dtype) * inv
     return torch.where(neg, -val, val)
 
 
@@ -139,7 +210,7 @@ def float_to_pcm16(x: torch.Tensor) -> torch.Tensor:
     """Signed fractions -> int16 PCM codes via the reference's 16-bit
     sign-magnitude quantizer (reference codec/pcmfile.py:127-134)."""
     a = torch.abs(x)
-    mag = torch.floor(fma32(a, 65535.0, 1.0) * 0.5).to(torch.int32)
+    mag = torch.floor(fma(a, 65535.0, 1.0) * 0.5).to(torch.int32)
     mag = torch.where(a >= 1.0, 32767, mag)
     out = torch.where(torch.signbit(x), -mag, mag)
     return out.to(torch.int16)

@@ -29,7 +29,7 @@ def test_synth_is_seeded():
 
 
 KERNELS = {"extract_codes", "water_fill", "pack_words", "spread_maskers_up",
-           "huffman_walk", "spread_maskers"}
+           "huffman_walk", "spread_maskers", "exact_scan"}
 
 
 def test_phases_on_cpu(monkeypatch, capsys):
@@ -95,6 +95,51 @@ def test_new_phases_on_cpu(monkeypatch, capsys):
     assert lines[0]["fixture_max_lsb"] <= 1
     assert [x["mode"] for x in lines[1:3]] == ["para", "weighted"]
     assert lines[3]["max_lsb"] <= 1
+
+
+def test_exact_phase_on_cpu(monkeypatch, capsys):
+    """Phase 8 at a small size: the float32 exact mode with 16- and 32-block
+    chunks (the same bytes) and its times beside the reservoir mode's, and
+    the float64 exact mode on 8-block stereo and mono slices, byte-equal to
+    the float64 oracle."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    pcm = chip_smoke.synth(0.5, 9)
+    launches = chip_smoke.phase8(torch, lambda **kw: Engine(
+        device="cpu", **kw), pcm, chunks=(16, 32), slice_blocks=8, reps=1)
+    assert set(launches) == KERNELS
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["phase"] for x in lines] == ["8-exact-f32", "8-exact-f64",
+                                           "8-exact-f64"]
+    assert lines[0]["chunks"] == [16, 32] and lines[0]["blocks"] == 23
+    assert len(lines[0]["encode_s_exact"]) == 2
+    assert [x["slice"] for x in lines[1:]] == ["stereo", "mono"]
+    assert all(x["identical"] and x["differing"] == 0 for x in lines[1:])
+
+
+def test_first_difference_names_the_stage():
+    """Phase 8's report on two streams that part: the channel-blocks that
+    differ and the first field that does; and on two analyses."""
+    from pactpu_torch import CodecConfig
+    pcm = chip_smoke.synth(0.2, 4)
+    a = Engine(device="cpu").encode(pcm)
+    b = Engine(device="cpu", rate_mode="cbr").encode(pcm)
+    same = chip_smoke.first_difference(a, a, CodecConfig())
+    assert same == dict(channel_blocks=2 * chip_smoke.n_blocks(pcm),
+                        differing=0)
+    diff = chip_smoke.first_difference(a, b, CodecConfig())
+    assert diff["differing"] > 0 and diff["stage"] in (
+        "lrms", "overall", "ba", "sf", "table_id", "mant")
+    # and the analyses of two engines that cut the file differently
+    blocks, one = chip_smoke.file_analysis(
+        torch, Engine(device="cpu", chunk_blocks=16), pcm)
+    _, two = chip_smoke.file_analysis(
+        torch, Engine(device="cpu", chunk_blocks=32), pcm)
+    same = chip_smoke.analysis_difference(torch, one, two, blocks)
+    assert same == dict(overall_equal=True, lrms_equal=True,
+                        mixed_max_diff=0.0, smr_max_diff=0.0)
+    two["smr"][3, 1, 4] += 0.5
+    moved = chip_smoke.analysis_difference(torch, one, two, blocks)
+    assert moved["smr_max_diff"] == 0.5 and moved["lrms_equal"]
 
 
 def test_kernel_tables_agree():

@@ -356,3 +356,107 @@ def test_empty_and_mixed_devices(cuda):
     a = torch.zeros((2, 8), dtype=torch.int32)
     with pytest.raises(ValueError):
         K.extract_codes(a.to(cuda), a, a)
+
+
+@pytest.mark.parametrize("name", chip_smoke.K2_EDGES)
+def test_water_fill_f64_cases(cuda, name):
+    """K2's float64 form (precision="f64") on the named edge inputs, their
+    SMRs in float64, bit for bit with the plain version in float64."""
+    args = [torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+            for a in chip_smoke.k2_edge(name)]
+    args[3] = args[3].double()
+    bits, left = K.water_fill(*args)
+    pbits, pleft = K.water_fill_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, pbits) and torch.equal(left, pleft)
+
+
+@pytest.mark.parametrize("n_bands", [33, 40, 64, 96, 200, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_water_fill_many_bands(cuda, n_bands, dtype):
+    """Past 32 bands a lane holds several: 2 and 4 slots in registers, 7
+    and 32 in the wide form, ties within a lane and across lanes,
+    zero-line bands, in both types."""
+    rng = np.random.default_rng(n_bands)
+    rows = 37
+    smr = rng.uniform(-30, 70, (rows, n_bands))
+    smr[::3] = np.round(smr[::3] / 10) * 10                  # many ties
+    smr[1::3, 32:] = smr[1::3, :n_bands - 32]
+    lrms = rng.random((rows, n_bands)) < 0.5
+    n_lines = rng.integers(0, 12, n_bands).astype(np.int32)
+    total = rng.integers(0, 4000, rows).astype(np.int32)
+    total[::5] = 10 ** 6
+    args = [torch.from_numpy(total).to(cuda), 16,
+            torch.from_numpy(n_lines).to(cuda),
+            torch.from_numpy(smr).to(dtype).to(cuda),
+            torch.from_numpy(lrms).to(cuda)]
+    bits, left = K.water_fill(*args)
+    pbits, pleft = K.water_fill_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, pbits) and torch.equal(left, pleft)
+
+
+@pytest.mark.parametrize("name", chip_smoke.K4_EDGES)
+def test_spread_up_f64_cases(cuda, name):
+    """K4's float64 form on the named edge inputs in float64, within
+    chip_smoke.K4_F64_RTOL of the plain version in float64."""
+    args = [torch.from_numpy(a).to(cuda).double()
+            for a in chip_smoke.k4_edge(name)]
+    out = K.spread_maskers_up(*args)
+    plain = K.spread_maskers_up_plain(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float64
+    assert bool(((out - plain).abs()
+                 <= chip_smoke.K4_F64_RTOL * plain.abs()).all())
+
+
+def test_huffman_walk_96_bands(cuda):
+    """K5 past the 64 bands it once took by value: random rows and a real
+    stream's rows under the 96-band layout chip_smoke.WIDE_BANDS."""
+    from pactpu_torch import Engine
+    from pactpu_torch.codec.header import read_header
+    from pactpu_torch.ops import huffman_decode as hd
+    cfg = CodecConfig(band_line_counts=chip_smoke.WIDE_BANDS)
+    stream = Engine(device=cuda, cfg=cfg).encode(chip_smoke.synth(0.5, 96))
+    rows, _ = hd.frame_rows(stream[read_header(stream)[2]:])
+    rng = np.random.default_rng(96)
+    garbage = rng.integers(0, 2 ** 32, (40, 64), dtype=np.uint64).astype(
+        np.uint32)
+    for words in (rows, garbage):
+        args = (torch.from_numpy(words.view(np.int32)).to(cuda),
+                hw.device_walk_lut(None, cuda), cfg.band_layout.n_lines,
+                cfg.n_scale_bits, cfg.n_mant_size_bits, cfg.n_table_id_bits)
+        rec = K.huffman_walk(*args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("code", "basf", "soff", "misc"), rec,
+                              K.huffman_walk_plain(*args)):
+            assert torch.equal(a, b), name
+    assert not rec[3][:, 2].all() and rows.shape[0] > 0
+
+
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+@pytest.mark.parametrize("layout", ["stereo", "mono", "96-bands",
+                                    "200-bands"])
+def test_exact_scan(cuda, precision, layout):
+    """K7 against its plain version on a 48-block chunk: all blocks from a
+    zero carry, then 30 real blocks (the rest padding) from the first
+    call's carry; extras and carry bit-equal.  96 bands take the register
+    form of three slots a lane, 200 bands the wide form."""
+    from pactpu_torch.codec import engine as E
+    cfg = {"stereo": CodecConfig(), "mono": CodecConfig(n_channels=1),
+           "96-bands": CodecConfig(band_line_counts=chip_smoke.WIDE_BANDS),
+           "200-bands": CodecConfig(band_line_counts=(5,) * 176 + (6,) * 24)
+           }[layout]
+    tables = E.device_tables(cfg, cuda, precision)
+    pcm = chip_smoke.synth(48 * 1024 / chip_smoke.FS, 7)
+    args = chip_smoke.k7_args(torch, cfg, tables, pcm, 48)
+    K.reset_launches()
+    ex, carry = K.exact_scan(*args)
+    assert K.LAUNCHES["exact_scan"] == 1
+    pex, pcarry = K.exact_scan_plain(*args)
+    assert torch.equal(ex, pex) and torch.equal(carry, pcarry)
+    assert int(carry[0]) != 0
+    tail = (*args[:3], 30, carry, *args[5:])
+    got, want = K.exact_scan(*tail), K.exact_scan_plain(*tail)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not got[0][30:].any()

@@ -279,10 +279,12 @@ def test_config_checks():
     for fields, fmt in MODES.values():
         Engine(device="cpu", cfg=TorchConfig(**fields), fmt=fmt)
     for alloc in ("closed_form", "uniform", "const_snr", "const_mnr"):
-        with pytest.raises(ValueError, match="ROADMAP queue 1, item 7"):
+        with pytest.raises(ValueError, match="ROADMAP queue 1, item 3"):
             Engine(device="cpu", cfg=TorchConfig(alloc_mode=alloc))
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 7"):
-        Engine(device="cpu", rate_mode="exact")
+    Engine(device="cpu", rate_mode="exact")
+    for fields in (dict(window="kbd"), dict(ms_decision="bitalloc")):
+        with pytest.raises(ValueError, match="rate_mode='exact'"):
+            Engine(device="cpu", rate_mode="exact", cfg=TorchConfig(**fields))
     with pytest.raises(ValueError, match="no reservoir"):
         Engine(device="cpu", rate_mode="exact", fmt="pac")
     with pytest.raises(ValueError, match="unknown format"):

@@ -26,7 +26,12 @@ huffman_walk each version's time a decoded line (per_line).
 `--prefill NAME`: version NAME's huffman_walk writes only the lines of
 active bands (the kernel before the one that writes every line), so its
 code tensor is zero-filled first, as its wrapper did; the fill is part of
-its time.
+its time.  Such a version takes the band layout as a host array, as
+huffman_walk did before it took a device array: time huffman_walk only
+against versions of the same convention.
+
+water_fill's time a greedy step is also given for this checkout at 40
+bands (two a lane) and in float64, the forms an older K2 lacks.
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -34,6 +39,7 @@ Needs a CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -59,31 +65,45 @@ def per_step(torch, K, chip_smoke, libs, use) -> None:
     lrms = torch.zeros((512, 25), dtype=torch.bool, device=dev)
     smr = torch.from_numpy(200 + rng.random((512, 25)).astype(np.float32))
     smr = smr.to(dev)
+    nl40 = torch.cat([nl, nl[:15]])
+    forms = {"f32": (nl, lrms, smr),
+             "f32-40-bands": (nl40, torch.zeros((512, 40), dtype=torch.bool,
+                                                device=dev),
+                              torch.cat([smr, smr[:, :15]], 1).contiguous()),
+             "f64": (nl, lrms, smr.double())}
     for name in libs:
         use(name)
-        ms = {}
-        for steps, budget in ((25, 0), (400, 10 ** 7)):
-            total = torch.full((512,), budget, dtype=torch.int32, device=dev)
-            bits, _ = K.water_fill(total, 16, nl, smr, lrms)
-            if int(bits.sum()) != (0 if budget == 0 else 512 * 25 * 16):
-                raise chip_smoke.SmokeError("per_step: unexpected grants")
-            ms[steps] = chip_smoke.device_ms(
-                torch, lambda: K.water_fill(total, 16, nl, smr, lrms))
-        print(json.dumps({"kernel": "water_fill", "version": name,
-                          "device_ms_25_steps": ms[25],
-                          "device_ms_400_steps": ms[400],
-                          "ns_per_step": (ms[400] - ms[25]) / 375 * 1e6}))
+        for form, (n_lines, ms_flags, s) in forms.items():
+            if form != "f32" and name != "this":
+                continue
+            bands = n_lines.shape[0]
+            lo, hi = bands, 16 * bands       # steps: all retire / all cap
+            ms = {}
+            for steps, budget in ((lo, 0), (hi, 10 ** 7)):
+                total = torch.full((512,), budget, dtype=torch.int32,
+                                   device=dev)
+                bits, _ = K.water_fill(total, 16, n_lines, s, ms_flags)
+                if int(bits.sum()) != (0 if budget == 0 else 512 * bands * 16):
+                    raise chip_smoke.SmokeError("per_step: unexpected grants")
+                ms[steps] = chip_smoke.device_ms(torch, lambda: K.water_fill(
+                    total, 16, n_lines, s, ms_flags))
+            print(json.dumps({"kernel": "water_fill", "version": name,
+                              "form": form, "bands": bands,
+                              f"device_ms_{lo}_steps": ms[lo],
+                              f"device_ms_{hi}_steps": ms[hi],
+                              "ns_per_step": (ms[hi] - ms[lo]) / (hi - lo)
+                              * 1e6}))
 
 
 def walk_prefilled(torch, K, words, lut, n_lines, n_scale_bits,
                    n_mant_size_bits, n_table_id_bits):
     """kernels.huffman_walk's launch with the code tensor zero-filled."""
-    import ctypes
     rows, n_bands, total = words.shape[0], len(n_lines), int(sum(n_lines))
     code = torch.zeros((rows, total), dtype=torch.int32, device=words.device)
     basf, soff = (torch.empty((rows, n_bands), dtype=torch.int32,
                               device=words.device) for _ in range(2))
     misc = torch.empty((rows, 5), dtype=torch.int32, device=words.device)
+    # a version this old takes the band layout as a host array
     bands = (ctypes.c_int32 * n_bands)(*(int(n) for n in n_lines))
     K._launch("huffman_walk", words.device, K._ptr(words), K._ptr(lut["l1"]),
               K._ptr(lut["l1b"]), K._ptr(lut["l2"]), bands, K._ptr(code),
@@ -172,8 +192,14 @@ def main() -> int:
         out_dir = os.path.join(K.BUILD_DIR, f"ab_{name}")
         lib_path = os.path.join(out_dir, "libpactpu_kernels.so")
         log_path = os.path.join(out_dir, "kernels_build.log")
-        K.build(os.path.abspath(src), lib_path, log_path)
-        libs[name] = K.bind(lib_path)
+        # an older checkout may lack sources and symbols: what it has is
+        # built and bound
+        src = os.path.abspath(src)
+        K.build(src, lib_path, log_path,
+                [s for s in K.SOURCES if os.path.exists(os.path.join(src, s))])
+        has = ctypes.CDLL(lib_path)
+        libs[name] = K.bind(lib_path, [s for s in K.c_symbols()
+                                       if hasattr(has, s)])
         print(json.dumps({"build": name, "csrc": src,
                           "ptxas": ptxas(log_path)}))
 

@@ -6,15 +6,19 @@
                                    [--peak-mode ref|para|weighted]
                                    [--fmt wak|pac] [--channels 1|2]
                                    [--window sine|kbd]
+                                   [--rate reservoir|cbr|exact]
+                                   [--precision f32|f64]
 
 Encodes and decodes one synthetic file (chip_smoke.synth; its first
-channel for --channels 1) with Engine(device="cuda",
-rate_mode="reservoir") in the chosen stream format, on the chosen decode
-parse route, peak-picker mode and window, and reports, as JSON lines:
+channel for --channels 1) with Engine(device="cuda") in the chosen rate
+mode (reservoir by default), precision and stream format, on the chosen
+decode parse route, peak-picker mode and window, and reports, as JSON
+lines:
 
 - "stages": host-clock seconds of each stage of one serial encode +
   decode, with a device synchronize after each stage (so a stage's own
-  device work lands in it);
+  device work lands in it); the exact mode's encode in three stages (the
+  analysis, the cost tables and kernel K7, the final pass);
 - "device": a torch.profiler trace of one encode + decode with no added
   synchronization: wall seconds, summed kernel (device) seconds, the
   device's busy and idle shares, the device time of each of the port's own
@@ -48,6 +52,9 @@ def main() -> int:
     ap.add_argument("--fmt", default="wak", choices=("wak", "pac"))
     ap.add_argument("--channels", type=int, default=2, choices=(1, 2))
     ap.add_argument("--window", default="sine", choices=("sine", "kbd"))
+    ap.add_argument("--rate", default="reservoir",
+                    choices=("reservoir", "cbr", "exact"))
+    ap.add_argument("--precision", default="f32", choices=("f32", "f64"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -58,12 +65,14 @@ def main() -> int:
 
     from chip_smoke import n_blocks, synth
     from pactpu_torch import CodecConfig, Engine
+    from pactpu_torch.codec import exact
 
     pcm = np.ascontiguousarray(synth(args.seconds, 4)[:, :args.channels])
     cfg = CodecConfig(peak_mode=args.peak_mode, n_channels=args.channels,
                       window=args.window)
-    eng = Engine(device="cuda", cfg=cfg, rate_mode="reservoir",
-                 fmt=args.fmt, decode_parse=args.decode_parse)
+    eng = Engine(device="cuda", cfg=cfg, rate_mode=args.rate,
+                 fmt=args.fmt, decode_parse=args.decode_parse,
+                 precision=args.precision)
     eng.decode(eng.encode(pcm))                       # warm
     torch.cuda.synchronize()
 
@@ -79,6 +88,15 @@ def main() -> int:
     if args.fmt == "pac":
         payload = stage("encode/analyze+finalize+download+pack",
                         eng._encode_baseline, pcm)
+    elif args.rate == "exact":
+        b, sizes, analyses = stage("encode/upload+analyze", eng._analyze,
+                                   pcm)
+        extras, _ = stage("encode/cost-tables+exact-scan",
+                          exact.extras_chunked, cfg, analyses,
+                          eng.tables(), b)
+        st = stage("encode/finalize", eng._stage_payload, analyses, extras,
+                   b, sizes)
+        payload = stage("encode/download+assemble", eng._finish_encode, st)
     else:
         st = stage("encode/analyze+reservoir+finalize", eng._encode_chunks,
                    pcm)
@@ -95,7 +113,8 @@ def main() -> int:
     stage("decode/download", eng._decode_finish, *d)
     blocks = n_blocks(pcm)
     mode = dict(decode_parse=args.decode_parse, peak_mode=args.peak_mode,
-                fmt=args.fmt, channels=args.channels, window=args.window)
+                fmt=args.fmt, channels=args.channels, window=args.window,
+                rate=args.rate, precision=args.precision)
     print(json.dumps({**mode,
                       "stages": stages, "blocks": blocks,
                       "total_s": round(sum(stages.values()), 6)}))
