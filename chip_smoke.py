@@ -6,7 +6,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints one line; any failure raises and exits non-zero):
 
 0. environment: the card's name and power limit, torch and CUDA versions,
-   the build times of the seven CUDA kernels (nvcc, sm_90a) and of the
+   the build times of the nine CUDA kernels (nvcc, sm_90a) and of the
    native bitstream runtime (g++);
 1. kernel parity at their paths' shapes: K1-K3 and K5 bit for bit against
    their plain PyTorch versions, K4 and K6 within a stated tolerance, each
@@ -33,9 +33,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
    streams to the host route's samples, the JAX fixture within 1 LSB, and
    raises on a corrupted copy; K5 and K1 launched;
 6. the aidan peak modes: Engine(cfg=CodecConfig(peak_mode=m)) for "para"
-   and "weighted", encode -> decode of the 60 s file; streams parse back,
-   SNR above the floor, K6, K2 and K3 launched; for "weighted" a second
-   JAX fixture is decoded within 1 LSB and re-encoded at the same SNR;
+   and "weighted", in float32 and float64 (K6's float64 form), encode ->
+   decode of the 60 s file; streams parse back, SNR above the floor, K6,
+   K2 and K3 launched; for "weighted" in float32 a second JAX fixture is
+   decoded within 1 LSB and re-encoded at the same SNR;
 7. the other codec modes (MODES): mono .wak, stereo and mono .pac
    (Engine(fmt="pac")), the KBD window and the bit-allocation M/S
    decision, each encode -> decode of a 10 s file by both parse routes
@@ -50,11 +51,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
    and its first channel against the float64 oracle
    (pactpu_torch.compat.refcodec), byte for byte or within
    EXACT_F64_SNR_DB and EXACT_F64_SIZE with the first differing stage
-   printed.
+   printed;
+9. the other allocators and the rest of the Engine surface (phase9):
+   closed_form (K8), uniform, const_snr and const_mnr (K9), each in cbr
+   and reservoir on two 10 s files, with pactpu's streams of the same
+   (tests/data/torch_port_fixture_alloc.npz) decoded and re-encoded; a
+   table set trained on the card (huffman_train), pactpu's trained-table
+   stream, a table set outside K5's LUT (host parse only),
+   device_pack=False and debug_checks=True.
 
 Phase 1 also holds K2 past 32 bands (k2_edge "40-bands") and in float64,
-K4 in float64, K5 on a 96-band stream, and K7 on a real 512-block chunk in
-float32 and float64 to their plain versions.
+K4 and K6 in float64, K5 on a 96-band stream, K7 on a real 512-block
+chunk in float32 and float64, and K8 (both types) and K9 on the rows of
+that chunk and on the edge inputs of k8_edge / k9_edge to their plain
+versions.
 
 Then a JSON line with each kernel's launches (on its path, and on every
 path and mode measured), error and times, the nvidia-smi line, and last
@@ -80,6 +90,8 @@ FIXTURE_WEIGHTED = os.path.join(ROOT, "tests", "data",
                                 "torch_port_fixture_weighted.npz")
 FIXTURE_MODES = os.path.join(ROOT, "tests", "data",
                              "torch_port_fixture_modes.npz")
+FIXTURE_ALLOC = os.path.join(ROOT, "tests", "data",
+                             "torch_port_fixture_alloc.npz")
 FS = 44100
 # The reference decoder's M/S aliasing (L' = M - S, R' = M; Q1) caps the
 # SNR of material whose channels differ: these files decode at 5.4 to 9.8 dB
@@ -102,6 +114,8 @@ K6_RTOL = 1e-5               # as K4: the terms are equal, the sum's order not
 # the sum in another order: a few float64 ulp
 K4_F64_RTOL = 1e-12
 K6_SPL_ATOL_DB = 1e-3
+# K6's float64 form: as K4's
+K6_F64_RTOL = 1e-12
 REPLACES = {                 # the TPU kernel body each CUDA kernel replaces
     "extract_codes": ("extract_codes.cu", "pactpu/ops/pallas_ops.py:240"),
     "water_fill": ("water_fill.cu", "pactpu/ops/pallas_ops.py:339"),
@@ -109,20 +123,26 @@ REPLACES = {                 # the TPU kernel body each CUDA kernel replaces
     "spread_maskers_up": ("spread_up.cu", "pactpu/ops/pallas_ops.py:85"),
     "huffman_walk": ("huffman_walk.cu", "pactpu/ops/huffman_walk.py:230"),
     "spread_maskers": ("spread.cu", "pactpu/ops/pallas_ops.py:50"),
-    # not a Pallas kernel: the lax.scan the JAX package runs as XLA ops
-    "exact_scan": ("exact_scan.cu", "pactpu/codec/exact.py:152"),
+    # not Pallas kernels: the loops the JAX package runs as XLA ops
+    "exact_scan": ("exact_scan.cu",
+                   "none: pactpu/codec/exact.py:152 (lax.scan)"),
+    "closed_form": ("closed_form.cu",
+                    "none: pactpu/ops/bitalloc.py:241 (lax.while_loop)"),
+    "grant_fill": ("grant_fill.cu",
+                   "none: pactpu/ops/bitalloc.py:458 (lax.while_loop)"),
 }
 # the path whose launches each kernel's "launches" reports
 PATH_OF = {"extract_codes": "main", "water_fill": "main",
            "pack_words": "main", "spread_maskers_up": "main",
            "huffman_walk": "device-parse", "spread_maskers": "aidan",
-           "exact_scan": "exact"}
+           "exact_scan": "exact", "closed_form": "alloc-closed_form",
+           "grant_fill": "alloc-const_mnr"}
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, and float32 operations/s outside
 # the tensor cores (also taken as the rate of the 32-bit integer operations)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 # the same data sheet's float64 rate outside the tensor cores, for the
-# float64 forms of K2, K4 and K7
+# float64 forms of K2, K4, K6, K7 and K8
 PEAK_F64_OPS_PER_S = 34e12
 
 
@@ -437,6 +457,92 @@ def k6_edge(name: str):
         mspl = np.minimum(mspl, 60.0)
         lev = rng.uniform(20, 40, (rows, k)).astype(np.float32)
     return mspl, lev, bark, valid, drop, zvec
+
+
+K8_EDGES = ("zero-budget", "negative-budget", "everything", "ties",
+            "zero-lines", "grid", "40-bands")
+K9_EDGES = ("zero-budget", "negative-budget", "everything", "ties",
+            "zero-lines", "nan", "inf", "stall", "40-bands")
+
+
+def _alloc_rows(name: str, seed: int):
+    """What K8's and K9's edge inputs share: (budget i32[9], values
+    f32[9, bands], n_lines i32[bands]) with the budgets, ties and line
+    counts `name` asks for."""
+    rng = np.random.default_rng(seed)
+    n_bands = 40 if name == "40-bands" else 25
+    rows = 9
+    vals = rng.uniform(-20, 60, (rows, n_bands)).astype(np.float32)
+    n_lines = rng.integers(1, 60, n_bands).astype(np.int32)
+    budget = rng.integers(0, 3000, rows).astype(np.int32)
+    lines = int(n_lines.sum())
+    if name == "zero-budget":
+        budget[:] = 0
+    elif name == "negative-budget":
+        budget[:] = -rng.integers(1, 5000, rows)
+        budget[0] = -1
+    elif name == "everything":
+        # at and past 16 bits on every line
+        budget[:] = 16 * lines + rng.integers(0, 500, rows)
+        budget[0] = 16 * lines
+        budget[1] = 16 * lines - 1
+    elif name == "ties":
+        vals[:] = np.round(vals / 6.0) * 6.0     # ties across lanes
+        vals[0] = 12.0
+        vals[1, 0:24:2] = vals[1, 1:24:2]         # pairwise ties
+    elif name == "zero-lines":
+        n_lines[[0, 3, 17, 24]] = 0
+        budget[::2] = 0
+    elif name == "grid":
+        vals[:] = rng.integers(-320, 480, vals.shape) / 8.0
+        budget[1] = 16 * lines + 7
+    elif name == "40-bands":
+        n_lines[[3, 17, 35]] = 0
+        vals[:, 33] = vals[:, 2] = 30.0          # lane 1 slot 1 vs lane 2
+        vals[:, 32] = vals[:, 0]                 # one lane's two bands tie
+        vals[::3, 8:] = vals[::3, :1]            # most bands tied
+        budget[::4] = rng.integers(3000, 9000, -(-rows // 4))
+    return budget, vals, n_lines
+
+
+def k8_edge(name: str):
+    """Edge inputs of K8 closed_form as (budget, smr, n_lines,
+    max_mant_bits), numpy arrays and an int: zero and negative budgets,
+    budgets at, just below and past 16 bits on every line, SMRs on a
+    6 dB grid (ties across lanes and, after the +6 dB steps, across trips),
+    zero-line bands, SMRs on a 1/8-dB grid (every product and sum exact),
+    and 40 bands (two a lane) with ties across a lane's slots and across
+    lanes."""
+    budget, smr, n_lines = _alloc_rows(name, 400 + K8_EDGES.index(name))
+    return budget, smr, n_lines, 16
+
+
+def k9_edge(name: str):
+    """Edge inputs of K9 grant_fill as (total, level, n_lines,
+    max_mant_bits, budget_cap): the budgets, ties and line counts of
+    k8_edge, NaN levels of both signs, +inf and -inf levels, rows whose
+    arg-max falls on a band that cannot be paid for (every other level
+    -inf: the walk stops), and 40 bands.  budget_cap is the engine's, four
+    times the largest budget (pactpu's loop bound)."""
+    total, level, n_lines = _alloc_rows(name, 500 + K9_EDGES.index(name))
+    if name == "nan":
+        level[::2, 3] = np.nan
+        level[1] = np.nan
+        level[3, 7] = -np.nan
+    elif name == "inf":
+        level[0, 4] = np.inf
+        level[2] = -np.inf
+        level[4, ::3] = -np.inf
+        level[5, 1] = np.inf
+        level[5, 6] = np.inf
+    elif name == "stall":
+        # band 0 costs more than any budget: where every level is -inf the
+        # arg-max is band 0 and nothing is granted from there on
+        n_lines[0] = 4000
+        level[:5] = -np.inf
+        level[5:, 1:] = -np.inf
+    cap = 4 * max(int(total.max()), 1)
+    return total, level, n_lines, 16, cap
 
 
 def k5_rows(ba_of, value_of, n_words: int, size_bits: int = 4,
@@ -939,11 +1045,154 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
         exp2_count=triples, sm_clock_mhz=clock, sms=sms,
         slots_per_row=float(args6[3].sum(1).mean()),
         sfu_floor_ms=triples / (sms * 16 * clock * 1e6) * 1e3)
+    phase1_alloc(torch, dev_tables, pcm, record, res, extra)
     phase1_bands_f64_exact(torch, pcm, record, res, extra)
     torch.cuda.synchronize()
     for name, r in res.items():
         say("1-kernel", name=name, **r, **extra[name])
     return res
+
+
+def phase1_alloc(torch, dev_tables, pcm: np.ndarray, record, res: dict,
+                 extra: dict, blocks: int = 512) -> None:
+    """Phase 1's checks of the other allocators' kernels: K8 closed_form
+    and K9 grant_fill bit-equal with their plain versions on the rows of
+    a real 512-block chunk (both channels, the flat per-channel budget;
+    K8 also in float64 on the chunk's float64 analysis, K9 on its SMRs as
+    const_mnr takes them and on its peak SPLs as const_snr does) and on
+    every k8_edge / k9_edge input; their times, steps a row and ns a step
+    (the kernel's time alone over its longest row's chain)."""
+    from pactpu_torch import CodecConfig
+    from pactpu_torch.codec import engine as E
+    from pactpu_torch.ops import bitalloc, psycho
+    from pactpu_torch.ops import kernels as K
+    dev = torch.device("cuda")
+    cfg = CodecConfig()
+    frames = chunk_frames(torch, pcm, blocks, dev)
+    nl = dev_tables["lay"]["n_lines"]
+    budget = int(cfg.bit_budget())
+    total = torch.full((2 * blocks,), budget, dtype=torch.int32, device=dev)
+    cap = bitalloc._legacy_iter_bound(4 * max(budget, 1),
+                                      cfg.band_layout.n_lines, cfg.n_bands)
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+
+    def steps_of(plain, *args):
+        stats = {}
+        want = plain(*args, stats=stats)
+        return want, stats
+
+    # K8 on the chunk's rows, float32 then float64
+    for prec in ("f32", "f64"):
+        tables = dev_tables if prec == "f32" else E.device_tables(
+            cfg, "cuda", "f64")
+        a = E.analyze(cfg, frames, tables)
+        smr = a["smr"].reshape(2 * blocks, -1).contiguous()
+        args = (total, smr, nl, 16)
+        got = K.closed_form(*args)
+        want, stats = steps_of(K.closed_form_plain, *args)
+        check(torch.equal(got, want),
+              f"K8 ({prec}) differs from its plain version on the chunk")
+        check(int(got.sum()) > 0, "K8's chunk input allocates nothing")
+        moved = nbytes(total, smr, nl, got)
+        ops = 4 * smr.shape[1] * stats["steps"]
+        if prec == "f32":
+            record("closed_form", 0.0, lambda: K.closed_form(*args),
+                   lambda: K.closed_form_plain(*args), moved, ops,
+                   plain_runs=3)
+            r = extra["closed_form"]
+        else:
+            r = res["closed_form"]["f64"] = dict(
+                ms=median_ms(torch, lambda: K.closed_form(*args)),
+                device_ms=device_ms(torch, lambda: K.closed_form(*args)),
+                plain_ms=median_ms(torch, lambda: K.closed_form_plain(*args),
+                                   3))
+            t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_F64_OPS_PER_S * 1e3
+            r.update(bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+        r.update(chain_steps_max=stats["max_steps"],
+                 steps_per_row=stats["steps"] / smr.shape[0],
+                 ns_per_step=r["device_ms"] * 1e6 / max(stats["max_steps"],
+                                                        1))
+    for name in K8_EDGES:
+        e = [up(x) if isinstance(x, np.ndarray) else x for x in k8_edge(name)]
+        for dt in (torch.float32, torch.float64):
+            e[1] = e[1].to(dt)
+            check(torch.equal(K.closed_form(*e), K.closed_form_plain(*e)),
+                  f"K8 ({dt}) differs from its plain version on {name}")
+
+    # K9 on the chunk's SMRs (const_mnr) and peak SPLs (const_snr)
+    a = E.analyze(cfg, frames, dev_tables)
+    pk = psycho.band_max(torch.abs(a["mixed"]), dev_tables["lay"], fill=0.0)
+    peak_spl = (psycho.spl(4.0 * pk * pk)
+                - 6.02 * a["overall"][..., None].to(pk.dtype))
+    for what, level in (("mnr", a["smr"]), ("snr", peak_spl)):
+        level = level.reshape(2 * blocks, -1).float().contiguous()
+        args = (total, level, nl, 16, cap)
+        got = K.grant_fill(*args)
+        want, stats = steps_of(K.grant_fill_plain, *args)
+        check(torch.equal(got, want),
+              f"K9 differs from its plain version on the chunk's {what} rows")
+        if what == "mnr":
+            record("grant_fill", 0.0, lambda: K.grant_fill(*args),
+                   lambda: K.grant_fill_plain(*args),
+                   nbytes(total, level, nl, got),
+                   4 * level.shape[1] * stats["steps"], plain_runs=3)
+            r = extra["grant_fill"]
+            r.update(chain_steps_max=stats["max_steps"],
+                     steps_per_row=stats["steps"] / level.shape[0],
+                     step_cap=cap,
+                     ns_per_step=r["device_ms"] * 1e6
+                     / max(stats["max_steps"], 1))
+        else:
+            ms = device_ms(torch, lambda: K.grant_fill(*args))
+            extra["grant_fill"].update(
+                snr_device_ms=ms, snr_chain_steps_max=stats["max_steps"],
+                snr_steps_per_row=stats["steps"] / level.shape[0])
+    for name in K9_EDGES:
+        t, lev, n_l, mm, bcap = k9_edge(name)
+        e = (up(t), up(lev), up(n_l), mm,
+             bitalloc._legacy_iter_bound(bcap, n_l, n_l.shape[0]))
+        check(torch.equal(K.grant_fill(*e), K.grant_fill_plain(*e)),
+              f"K9 differs from its plain version on {name}")
+    # a step inside each chain, free of the launch and of what a row costs
+    # besides its steps: the time alone on rows that take many steps less
+    # the time on the same rows taking none.  K8: SMRs 300 dB on every band
+    # but the last (0 dB), so that the init caps 24 bands at 16 bits, far
+    # past a budget of 1,300 bits, against a budget past 16 bits on every
+    # line; K9: levels near 200 dB and a budget past 16 bits on every line
+    # (400 grants a row) against a zero budget
+    lines = int(nl.sum())
+    rows = 2 * blocks
+    smr = torch.full((rows, cfg.n_bands), 300.0, device=dev)
+    smr[:, -1] = 0.0
+    smr += torch.rand(rows, cfg.n_bands, device=dev)
+    many = torch.full((rows,), 1300, dtype=torch.int32, device=dev)
+    none = torch.full((rows,), 16 * lines + 1, dtype=torch.int32, device=dev)
+    _, stats = steps_of(K.closed_form_plain, many, smr, nl, 16)
+    _, zero = steps_of(K.closed_form_plain, none, smr, nl, 16)
+    check(zero["max_steps"] == 0 and stats["max_steps"] > 100,
+          "K8's step timing input takes other trips than planned")
+    step = (device_ms(torch, lambda: K.closed_form(many, smr, nl, 16))
+            - device_ms(torch, lambda: K.closed_form(none, smr, nl, 16)))
+    extra["closed_form"].update(step_input_trips=stats["max_steps"],
+                                step_ns=step * 1e6 / stats["max_steps"])
+    level = (200.0 + torch.rand(rows, cfg.n_bands, device=dev)).contiguous()
+    many = torch.full((rows,), 16 * lines, dtype=torch.int32, device=dev)
+    none = torch.zeros(rows, dtype=torch.int32, device=dev)
+    _, stats = steps_of(K.grant_fill_plain, many, level, nl, 16, cap)
+    check(stats["max_steps"] == 16 * cfg.n_bands,
+          "K9's step timing input takes other grants than planned")
+    step = (device_ms(torch, lambda: K.grant_fill(many, level, nl, 16, cap))
+            - device_ms(torch, lambda: K.grant_fill(none, level, nl, 16, cap)))
+    extra["grant_fill"].update(step_input_grants=stats["max_steps"],
+                               step_ns=step * 1e6 / stats["max_steps"])
+    # K2's ns a step (its time alone over its longest row's steps) beside
+    # K8's and K9's
+    k2_ns = (extra["water_fill"]["device_ms"] * 1e6
+             / extra["water_fill"]["chain_steps_max"])
+    for name in ("closed_form", "grant_fill"):
+        extra[name]["k2_ns_per_step"] = k2_ns
 
 
 def phase1_bands_f64_exact(torch, pcm: np.ndarray, record, res: dict,
@@ -975,7 +1224,8 @@ def phase1_bands_f64_exact(torch, pcm: np.ndarray, record, res: dict,
     # K2 and K4 in float64 on the same chunk (precision="f64")
     cfg = CodecConfig()
     dev64 = E.device_tables(cfg, "cuda", "f64")
-    chunk64 = main_path_inputs(torch, dev64, pcm, blocks, parts=("k4", "k2"))
+    chunk64 = main_path_inputs(torch, dev64, pcm, blocks,
+                               parts=("k4", "k2", "k6"))
     k2 = chunk64["k2"]
     check(k2[3].dtype == torch.float64, "K2's float64 input is not float64")
     bits, left = K.water_fill(*k2)
@@ -1017,6 +1267,29 @@ def phase1_bands_f64_exact(torch, pcm: np.ndarray, record, res: dict,
               lambda: K.spread_maskers_up_plain(*args),
               nbytes(*args, out), 6 * triples),
         max_abs_err=float(err.max()), max_rel_err=rel)
+
+    # K6 in float64 on the chunk's weighted-mode maskers (precision="f64")
+    args = chunk64["k6"]
+    check(args[0].dtype == torch.float64, "K6's float64 input is not float64")
+    out = K.spread_maskers(*args)
+    plain = K.spread_maskers_plain(*args)
+    err = (out - plain).abs()
+    rel = float((err / plain.abs().clamp(min=1e-300)).max())
+    check(bool((err <= K6_F64_RTOL * plain.abs() + 1e-300).all()),
+          f"K6's float64 form beyond rtol {K6_F64_RTOL}: max rel {rel}")
+    for name in K6_EDGES:
+        e_args = [torch.from_numpy(a).to(dev).double() for a in k6_edge(name)]
+        e_out = K.spread_maskers(*e_args)
+        e_plain = K.spread_maskers_plain(*e_args)
+        check(bool(((e_out - e_plain).abs()
+                    <= K6_F64_RTOL * e_plain.abs() + 1e-300).all()),
+              f"K6's float64 form beyond rtol {K6_F64_RTOL} on {name}")
+    triples = int(args[3].sum()) * out.shape[1]
+    res["spread_maskers"]["f64"] = dict(
+        times(lambda: K.spread_maskers(*args),
+              lambda: K.spread_maskers_plain(*args),
+              nbytes(*args, out), 11 * triples),
+        max_abs_err=float(err.max()), max_rel_err=rel, exp2_count=triples)
 
     # K5 past 64 bands: a 96-band stream's rows and random rows
     wide = CodecConfig(band_line_counts=WIDE_BANDS)
@@ -1267,33 +1540,36 @@ def phase5(torch, eng_dev, streams, host_pcm) -> dict:
 
 
 def phase6(torch, make_engine, pcm) -> dict:
-    """The aidan peak modes: encode -> decode of one file per mode."""
+    """The aidan peak modes: encode -> decode of one file per mode, in
+    float32 and in float64 (K6's float64 form)."""
     from pactpu_torch import CodecConfig
     from pactpu_torch.ops import kernels as K
     launches = {}
-    for mode in ("para", "weighted"):
-        eng = make_engine(cfg=CodecConfig(peak_mode=mode))
+    for mode, prec in (("para", "f32"), ("weighted", "f32"),
+                       ("para", "f64"), ("weighted", "f64")):
+        eng = make_engine(cfg=CodecConfig(peak_mode=mode), precision=prec)
         sync(torch)
         K.reset_launches()
         stream = eng.encode(pcm)
         fs, out = eng.decode(stream)
         sync(torch)
-        launches[mode] = dict(K.LAUNCHES)
-        check_launched(launches[mode],
+        launches[mode, prec] = dict(K.LAUNCHES)
+        check_launched(launches[mode, prec],
                        ["spread_maskers", "water_fill", "pack_words"],
-                       f"the {mode} path")
-        check(launches[mode]["spread_maskers_up"] == 0,
-              f"the {mode} path ran the dense upslope kernel")
+                       f"the {mode} {prec} path")
+        check(launches[mode, prec]["spread_maskers_up"] == 0,
+              f"the {mode} {prec} path ran the dense upslope kernel")
         parses_back(stream, eng.cfg, pcm)
         snr = snr_db(pcm, out)
         check(fs == FS and np.isfinite(snr) and snr > SNR_FLOOR_DB,
-              f"{mode}: SNR {snr:.2f} dB not above the {SNR_FLOOR_DB} dB "
-              "floor")
-        say("6-aidan", mode=mode, blocks=n_blocks(pcm), bytes=len(stream),
-            snr_db=round(snr, 3), launches=launches[mode])
-        if mode == "weighted":
+              f"{mode} {prec}: SNR {snr:.2f} dB not above the "
+              f"{SNR_FLOOR_DB} dB floor")
+        say("6-aidan", mode=mode, precision=prec, blocks=n_blocks(pcm),
+            bytes=len(stream), snr_db=round(snr, 3),
+            launches=launches[mode, prec])
+        if mode == "weighted" and prec == "f32":
             phase3(eng, FIXTURE_WEIGHTED, "6-aidan-fixture")
-    return launches["weighted"]
+    return launches["weighted", "f32"]
 
 
 # phase 7: (name, CodecConfig fields, Engine fmt); each the default
@@ -1376,6 +1652,208 @@ def phase7(torch, make_engine, files) -> dict:
     return launches
 
 
+ALLOC_MODES = ("closed_form", "uniform", "const_snr", "const_mnr")
+# the kernel each allocator's finalize launches in place of K2
+ALLOC_KERNEL = {"closed_form": "closed_form", "uniform": None,
+                "const_snr": "grant_fill", "const_mnr": "grant_fill"}
+
+
+def unfit_tables(n_tables: int = 10):
+    """A Huffman table set outside K5's LUT: every table codes symbols
+    0..4094 with 12-bit codes (and the escape as the 4,096th), so each has
+    2,048 prefixes deeper than the 11-bit root table, past the LUT's 128.
+    Valid for the encoder and the host parser."""
+    n_sym = 1 << 15
+    lengths = np.zeros((n_tables, n_sym), np.int32)
+    codes = np.zeros((n_tables, n_sym), np.int32)
+    lengths[:, :4095] = 12
+    codes[:, :4095] = np.arange(4095)
+    return (lengths, codes, np.full(n_tables, 12, np.int32),
+            np.full(n_tables, 4095, np.int32))
+
+
+def phase9(torch, make_engine, files) -> dict:
+    """The other allocators and the rest of the Engine surface.
+
+    Each allocator in cbr and reservoir: encode -> decode of files[0] by
+    both routes (the same samples), roundtrip_many of all files against
+    serial, SNR above the floor, the launches of each step (K8 for
+    closed_form, K9 for const_snr/const_mnr, one a channel a pass and
+    chunk, none of K2; neither for uniform); pactpu's stream of the same
+    allocator and rate mode (FIXTURE_ALLOC) decoded by both routes within
+    1 LSB of the float64 oracle's decode (pactpu_torch.compat.refcodec,
+    which the CPU tests hold within 1 LSB of pactpu's) and re-encoded
+    within 0.1 dB and 1%.  Then a table set trained on the card from the
+    engine's own symbols (huffman_train): its cbr stream decodes by both
+    routes to the samples of the shipped tables' cbr stream; pactpu's
+    stream on its trained tables decodes by both routes alike; a table
+    set outside K5's LUT encodes and decodes by host parse and raises on
+    decode_parse="device"; device_pack=False gives the same bytes with no
+    K3 launch; debug_checks=True gives the same bytes.  Returns each
+    allocator's launches (its reservoir encode and both decodes)."""
+    from pactpu_torch import CodecConfig
+    from pactpu_torch.codec import engine as E
+    from pactpu_torch.compat import refcodec
+    from pactpu_torch.ops import huffman_train
+    from pactpu_torch.ops import kernels as K
+    fx = np.load(FIXTURE_ALLOC)
+    fx_pcm = np.load(FIXTURE)["pcm"]
+    pcm = files[0]
+    counts = {}
+
+    def counted(key, fn, arg):
+        sync(torch)
+        K.reset_launches()
+        out = fn(arg)
+        sync(torch)
+        counts[key] = dict(K.LAUNCHES)
+        return out
+
+    b = n_blocks(pcm) + 1
+    chunks = len(E._chunk_sizes(b, E._pad_blocks(b)))
+    launches = {}
+    for alloc in ALLOC_MODES:
+        for rate in ("cbr", "reservoir"):
+            cfg = CodecConfig(alloc_mode=alloc)
+            eng = make_engine(cfg=cfg, rate_mode=rate)
+            eng_dev = make_engine(cfg=cfg, rate_mode=rate,
+                                  decode_parse="device")
+            tag = f"{alloc}-{rate}"
+            stream = counted((tag, "encode"), eng.encode, pcm)
+            fs, out = counted((tag, "decode-host"), eng.decode, stream)
+            fs2, out2 = counted((tag, "decode-device"), eng_dev.decode,
+                                stream)
+            check(fs == fs2 == FS and np.array_equal(out, out2),
+                  f"{tag}: the device-parse PCM differs from the host-parse")
+            enc = counts[tag, "encode"]
+            kern = ALLOC_KERNEL[alloc]
+            passes = 2 if rate == "reservoir" else 1
+            check_launched(enc, ["spread_maskers_up", "pack_words"]
+                           + ([kern] if kern else []), f"{tag} encode")
+            if DEV != "cpu":
+                # one launch a channel, pass and chunk (a chunk re-finalized
+                # for a wider packer adds its own)
+                check(kern is None or enc[kern] >= 2 * passes * chunks,
+                      f"{tag}: {enc.get(kern)} launches of {kern}, expected "
+                      f"{2 * passes * chunks}")
+                check(enc["water_fill"] == 0 and all(
+                    enc[k] == 0 for k in ("closed_form", "grant_fill")
+                    if k != kern), f"{tag} ran another allocator's kernel")
+            check_launched(counts[tag, "decode-host"], ["extract_codes"],
+                           f"{tag} decode-host")
+            check_launched(counts[tag, "decode-device"],
+                           ["huffman_walk", "extract_codes"],
+                           f"{tag} decode-device")
+            batch, streams = eng.roundtrip_many(files, return_streams=True)
+            check(streams[0] == stream and np.array_equal(batch[0][1], out),
+                  f"{tag}: roundtrip_many differs from serial")
+            for p, st, (_, o) in zip(files[1:], streams[1:], batch[1:]):
+                check(st == eng.encode(p)
+                      and np.array_equal(o, eng.decode(st)[1]),
+                      f"{tag}: roundtrip_many differs from serial")
+            snr = snr_db(pcm, out)
+            check(np.isfinite(snr) and snr > SNR_FLOOR_DB,
+                  f"{tag}: SNR {snr:.2f} dB not above the {SNR_FLOOR_DB} "
+                  "dB floor")
+            if rate == "reservoir":
+                launches[f"alloc-{alloc}"] = {
+                    k: sum(counts[tag, step][k] for step in
+                           ("encode", "decode-host", "decode-device"))
+                    for k in K.LAUNCHES}
+            # pactpu's stream of this allocator and rate mode
+            ref = fx[f"{alloc}_{rate}_stream"].tobytes()
+            _, oracle = refcodec.decode_file(ref)
+            d = []
+            for e in (eng, eng_dev):
+                _, got = e.decode(ref)
+                check(got.shape == oracle.shape,
+                      f"{tag}: fixture decode has the wrong shape")
+                d.append(np.abs(got.astype(np.int32) - oracle))
+            check(max(int(x.max()) for x in d) <= 1,
+                  f"{tag}: fixture decode off the oracle's by "
+                  f"{max(int(x.max()) for x in d)} LSB")
+            mine = eng.encode(fx_pcm)
+            snr_t = snr_db(fx_pcm, eng.decode(mine)[1])
+            snr_j = float(fx[f"{alloc}_{rate}_snr_db"])
+            check(abs(snr_t - snr_j) <= 0.1,
+                  f"{tag}: re-encode SNR {snr_t:.3f} dB vs JAX {snr_j:.3f}")
+            check(abs(len(mine) - len(ref)) <= 0.01 * len(ref),
+                  f"{tag}: re-encode size {len(mine)} vs JAX {len(ref)}")
+            say("9-alloc", alloc=alloc, rate_mode=rate,
+                blocks=n_blocks(pcm), bytes=len(stream),
+                snr_db=round(snr, 3), launches={
+                    step: counts[tag, step] for step in
+                    ("encode", "decode-host", "decode-device")},
+                fixture_identical_share=float((d[0] == 0).mean()),
+                fixture_max_lsb=int(max(x.max() for x in d)),
+                fixture_snr_port_db=round(snr_t, 4),
+                fixture_snr_jax_db=round(snr_j, 4),
+                fixture_bytes_port=len(mine), fixture_bytes_jax=len(ref))
+
+    # a table set trained on the card from the engine's own symbols
+    eng = make_engine(rate_mode="cbr")
+    _, sizes, analyses = eng._analyze(pcm)
+    syms = [E.finalize(eng.cfg, a, torch.zeros(n, device=eng.device),
+                       eng.consts(), return_syms=True)["syms"]
+            for a, n in zip(analyses, sizes)]
+    hist = sum(huffman_train.symbol_histogram(x) for x in syms)
+    tabs = huffman_train.train_tables(
+        {t: hist.cpu().numpy() for t in range(1, 11)})
+    trained = make_engine(rate_mode="cbr", tables=tabs)
+    trained_dev = make_engine(rate_mode="cbr", tables=tabs,
+                              decode_parse="device")
+    shipped = eng.encode(pcm)
+    stream = trained.encode(pcm)
+    check(stream != shipped, "the trained tables gave the shipped bytes")
+    _, out = trained.decode(stream)
+    _, out_dev = trained_dev.decode(stream)
+    _, out_shipped = eng.decode(shipped)
+    check(np.array_equal(out, out_dev) and np.array_equal(out, out_shipped),
+          "the trained tables' cbr stream decodes to other samples")
+    # pactpu's stream on its own trained tables
+    fx_tabs = tuple(fx[f"tables_{k}"] for k in
+                    ("lengths", "codes", "escape_lengths", "escape_codes"))
+    ref = fx["trained_cbr_stream"].tobytes()
+    _, a = make_engine(rate_mode="cbr", tables=fx_tabs).decode(ref)
+    _, b_ = make_engine(rate_mode="cbr", tables=fx_tabs,
+                        decode_parse="device").decode(ref)
+    check(np.array_equal(a, b_), "pactpu's trained-table stream decodes "
+          "to other samples by device parse")
+    snr_t, snr_j = snr_db(fx_pcm, a), float(fx["trained_cbr_snr_db"])
+    check(abs(snr_t - snr_j) <= 0.1, f"pactpu's trained-table stream "
+          f"decodes at {snr_t:.3f} dB, pactpu's at {snr_j:.3f}")
+    # a table set outside the walk LUT: host parse only
+    unfit = unfit_tables()
+    stream_u = make_engine(rate_mode="cbr", tables=unfit).encode(pcm)
+    _, out_u = make_engine(rate_mode="cbr", tables=unfit).decode(stream_u)
+    check(np.array_equal(out_u, out_shipped),
+          "the unfit tables' cbr stream decodes to other samples")
+    try:
+        make_engine(rate_mode="cbr", tables=unfit,
+                    decode_parse="device").decode(stream_u)
+    except ValueError as e:
+        unfit_msg = str(e)
+        check("decode_parse='host'" in unfit_msg,
+              f"the unfit tables' refusal names no host route: {unfit_msg}")
+    else:
+        raise SmokeError("decode_parse='device' decoded a table set "
+                         "outside the walk LUT")
+    # device_pack=False and debug_checks=True: the same bytes
+    main = make_engine().encode(pcm)
+    host_packed = counted("host-pack", make_engine(device_pack=False).encode,
+                          pcm)
+    check(host_packed == main, "device_pack=False gave other bytes")
+    check(counts["host-pack"]["pack_words"] == 0,
+          "device_pack=False launched K3")
+    check(make_engine(debug_checks=True).encode(pcm) == main,
+          "debug_checks=True gave other bytes")
+    say("9-surface", trained_bytes=len(stream), shipped_bytes=len(shipped),
+        fixture_trained_snr_port_db=round(snr_t, 4),
+        fixture_trained_snr_jax_db=round(snr_j, 4), unfit_refusal=unfit_msg,
+        host_pack_launches=counts["host-pack"])
+    return launches
+
+
 def stream_fields(stream: bytes, cfg) -> dict:
     """A .wak stream's fields by channel-block, as the native parser reads
     them (overall, table id, ba, sf, mantissas; LRMS flags by block)."""
@@ -1423,7 +1901,7 @@ def exact_trajectory(torch, eng, whole: dict, size: int, b: int):
     from pactpu_torch.codec import exact
     cut = [{k: v[i:i + size] for k, v in whole.items()}
            for i in range(0, whole["smr"].shape[0], size)]
-    extras, carry = exact.extras_chunked(eng.cfg, cut, eng.tables(), b)
+    extras, carry = exact.extras_chunked(eng.cfg, cut, eng.consts(), b)
     return torch.cat(extras)[:b], carry
 
 
@@ -1570,7 +2048,8 @@ def main() -> int:
                "device-parse": phase5(torch, eng_dev, streams, host_pcm),
                "aidan": phase6(torch, make, files[-1]),
                **phase7(torch, make, files[:2]),
-               "exact": phase8(torch, make, files[-1])}
+               "exact": phase8(torch, make, files[-1]),
+               **phase9(torch, make, files[:2])}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda",
              source=f"pactpu_torch/csrc/{REPLACES[name][0]}",

@@ -10,9 +10,11 @@ Huffman bit-walk) runs on the host, in the repository's native runtime
 (csrc/wakbits.cc through pactpu_torch.native).
 
 Ported here: stereo and mono, the sine and KBD windows, the three peak
-pickers, water-fill allocation, the intensity and bit-allocation M/S
-rules, float32 and float64 (precision "f32" | "f64"), on-device packing,
-and the rate modes
+pickers, the five allocators (water-fill, kernel K2; kai's closed form,
+K8; uniform; constant SNR and MNR, K9), the intensity and
+bit-allocation M/S rules, float32 and float64 (precision "f32" | "f64"),
+on-device or host packing, trained Huffman table sets, and the rate
+modes
 
 - "cbr":       every block allocates from the flat per-block budget.
 - "reservoir": two passes.  Pass 1 measures per-channel Huffman savings
@@ -208,17 +210,21 @@ def _transform(cfg: CodecConfig, frames_i16: torch.Tensor, dev: dict):
 
 def finalize(cfg: CodecConfig, analysis: dict, extra0: torch.Tensor,
              dev: dict, pack_words: int = PACK_WORDS,
-             measure_only: bool = False) -> dict:
-    """Encoder tail (pactpu finalize_body, water_fill branch, on-device
-    packing): water-filling allocation with the ch0 -> ch1 leftover chain,
-    BFP quantization, Huffman table selection, payload packing.
+             measure_only: bool = False, return_syms: bool = False) -> dict:
+    """Encoder tail (pactpu finalize_body): bit allocation by
+    cfg.alloc_mode with the ch0 -> ch1 leftover chain, BFP quantization,
+    Huffman table selection, payload packing.
 
     analysis: the analyze() dict (float32 or float64: the budget's sum
     runs in its type); extra0: f32[B] reservoir extra bits of channel 0.
-    measure_only returns just (savings i32[B, 2], leftover
+    measure_only returns just (savings i32[B, C], leftover
     i32[B]), the reservoir measurement.  Otherwise the dict also holds
-    overall, lrms, bits, sf, tid and the packed payload words
-    i32[2B, pack_words] (u32 bit patterns) with nbits i32[2B]."""
+    overall, lrms, bits, sf, tid and, with pack_words > 0, the packed
+    payload words i32[CB, pack_words] (u32 bit patterns) with nbits
+    i32[CB]; with pack_words = 0, what the host packer takes instead: sign
+    (0 where not transmitted), codes and lens [B, C, N].  return_syms adds
+    syms [B, C, N], each line's unsigned mantissa or -1 where it is not
+    transmitted (the symbols a Huffman table set is trained on)."""
     lay = dev["lay"]
     half = cfg.n_mdct_lines
     n_lines, seg = lay["n_lines"], lay["seg"]
@@ -229,18 +235,23 @@ def finalize(cfg: CodecConfig, analysis: dict, extra0: torch.Tensor,
 
     dt = mixed.dtype
     budget = torch.tensor(cfg.bit_budget(), dtype=dt, device=mixed.device)
+    peak = psycho.band_max(torch.abs(mixed), lay, fill=0.0)
+    alloc = _allocator(cfg, peak, overall)
     extra = extra0.to(dt)
     bits_ch = []
     for ch in range(c):
         total = (budget + extra).to(torch.int32)       # truncates, as int()
-        bits_c, left = bitalloc.water_fill(
-            total, max_mant, n_lines, smr[:, ch], lrms,
-            cfg.ms_stop_threshold_db, cfg.lr_stop_threshold_db)
+        if alloc is None:
+            bits_c, left = bitalloc.water_fill(
+                total, max_mant, n_lines, smr[:, ch], lrms,
+                cfg.ms_stop_threshold_db, cfg.lr_stop_threshold_db)
+        else:
+            bits_c = alloc(total, smr[:, ch], ch)
+            left = total - (bits_c * n_lines).sum(-1).to(torch.int32)
         bits_ch.append(bits_c)
         extra = left.to(dt)
     bits = torch.stack(bits_ch, dim=1)                  # [B, C, bands]
 
-    peak = psycho.band_max(torch.abs(mixed), lay, fill=0.0)
     sf = q.scale_factor(peak, cfg.n_scale_bits, bits)
     sf_l = sf[..., seg]
     nm_l = bits[..., seg]
@@ -258,16 +269,52 @@ def finalize(cfg: CodecConfig, analysis: dict, extra0: torch.Tensor,
     if measure_only:
         return dict(savings=savings, leftover=left)
 
-    words, nbits = bitpack.pack_payload_bits(
-        overall.reshape(b * c), tid, bits.reshape(b * c, -1),
-        sf.reshape(b * c, -1),
-        torch.where(transmit, sign, 0).reshape(b * c, half), codes, lens,
-        lrms.to(torch.int32).repeat_interleave(c, dim=0),
-        cfg.band_layout.n_lines, cfg.n_scale_bits, cfg.n_mant_size_bits,
-        cfg.n_table_id_bits, pack_words)
-    return dict(overall=overall, lrms=lrms, bits=bits, sf=sf,
-                tid=tid.reshape(b, c), savings=savings, leftover=left,
-                words=words, nbits=nbits)
+    out = dict(overall=overall, lrms=lrms, bits=bits, sf=sf,
+               tid=tid.reshape(b, c), savings=savings, leftover=left)
+    sign = torch.where(transmit, sign, 0)
+    if pack_words:
+        out["words"], out["nbits"] = bitpack.pack_payload_bits(
+            overall.reshape(b * c), tid, bits.reshape(b * c, -1),
+            sf.reshape(b * c, -1), sign.reshape(b * c, half), codes, lens,
+            lrms.to(torch.int32).repeat_interleave(c, dim=0),
+            cfg.band_layout.n_lines, cfg.n_scale_bits, cfg.n_mant_size_bits,
+            cfg.n_table_id_bits, pack_words)
+    else:
+        out.update(sign=sign, codes=codes.reshape(b, c, half),
+                   lens=lens.reshape(b, c, half))
+    if return_syms:
+        out["syms"] = torch.where(transmit, unsigned, -1)
+    return out
+
+
+def _allocator(cfg: CodecConfig, peak: torch.Tensor, overall: torch.Tensor):
+    """The allocator of cfg.alloc_mode other than water-filling, as
+    fn(total i32[B], smr [B, bands], channel) -> bits i32[B, bands]
+    (pactpu/codec/engine.py:248-283); None for water_fill, which also
+    returns its own leftover.  The legacy allocators' loop bound is
+    pactpu's 4 x the budget: with the channel chain a channel's budget
+    stays below it in practice.  const_snr allocates on the per-band peak
+    SPL of the coded lines, SPL(4 X^2) - 6.02 overall, in the engine's
+    type (reference BitAllocConstSNR's peakSPL)."""
+    mode = cfg.alloc_mode
+    if mode == "water_fill":
+        return None
+    max_mant = exact.max_mant(cfg)
+    n_lines = cfg.band_layout.n_lines
+    legacy_cap = int(4 * max(float(cfg.bit_budget()), 1))
+    if mode == "closed_form":
+        return lambda total, smr, ch: bitalloc.alloc_closed_form(
+            total, max_mant, n_lines, smr)
+    if mode == "uniform":
+        return lambda total, smr, ch: bitalloc.alloc_uniform_batch(
+            total, max_mant, n_lines, legacy_cap)
+    if mode == "const_mnr":
+        return lambda total, smr, ch: bitalloc.alloc_const_mnr_batch(
+            total, max_mant, n_lines, smr, legacy_cap)
+    peak_spl = (psycho.spl(4.0 * peak * peak)
+                - 6.02 * overall[..., None].to(peak.dtype))
+    return lambda total, smr, ch: bitalloc.alloc_const_snr_batch(
+        total, max_mant, n_lines, peak_spl[:, ch], legacy_cap)
 
 
 def encode_baseline(cfg: CodecConfig, frames_i16: torch.Tensor,
@@ -537,13 +584,21 @@ class Engine:
     PACTPU_DECODE_PARSE (default auto).  precision "f32" or "f64" is the
     float type of every stage (the .pac encode stays float32);
     rate_mode="exact" is the reference's serial reservoir (kernel K7), and
-    with "f64" the reference's serial encode byte for byte."""
+    with "f64" the reference's serial encode byte for byte.  tables is a
+    Huffman table set (a path or a 4-tuple, _check_tables; None = the
+    shipped set) for the encoder, both parse routes and K5's walk LUT;
+    device_pack=False packs the payload on the host (the same bytes, no
+    K3); debug_checks=True checks every encode pass as pactpu does
+    (DebugCheckError).  last_savings, last_measure and last_extras read
+    the last encode's statistics."""
 
     def __init__(self, device="cuda", cfg: Optional[CodecConfig] = None,
                  rate_mode: str = "reservoir", fmt: str = "wak",
                  chunk_blocks: Optional[int] = None,
                  decode_parse: Optional[str] = None,
-                 precision: str = "f32"):
+                 precision: str = "f32", tables=None,
+                 device_pack: Optional[bool] = None,
+                 debug_checks: bool = False):
         if rate_mode not in ("cbr", "reservoir", "exact"):
             raise ValueError(f"unknown rate mode {rate_mode!r}")
         if fmt not in ("wak", "pac"):
@@ -560,23 +615,67 @@ class Engine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda'): no CUDA device")
         self.cfg = cfg or CodecConfig()
-        _check_config(self.cfg, rate_mode, precision)
+        _check_config(self.cfg, rate_mode)
         self.rate_mode = rate_mode
         self.fmt = fmt
         self.precision = precision
         self.chunk_blocks = chunk_blocks
         self.decode_parse = decode_parse
+        self.tables = _check_tables(tables)
+        # False: every chunk's payload is packed on the host (native
+        # pack_file), no K3 launch, the same bytes
+        self.device_pack = device_pack is not False
+        self.debug_checks = debug_checks
         self._dev = {}
+        # what last_savings / last_measure / last_extras read: device
+        # tensors until first read (the encode does not wait for them)
+        self._last = {}
+        self._last_b = 0
         _full_fp32()
 
-    def tables(self, precision: Optional[str] = None) -> dict:
+    def consts(self, precision: Optional[str] = None) -> dict:
         """Device-resident constant tables in the engine's precision (or
-        the one named), uploaded once per Engine."""
+        the one named), with the engine's Huffman table set, uploaded once
+        per Engine."""
         precision = precision or self.precision
         if precision not in self._dev:
-            self._dev[precision] = device_tables(self.cfg, self.device,
-                                                 precision)
+            dev = device_tables(self.cfg, self.device, precision)
+            if self.tables is not None:
+                dev["tabs"] = tuple(torch.as_tensor(t, device=self.device)
+                                    for t in self.tables)
+            self._dev[precision] = dev
         return self._dev[precision]
+
+    def _last_host(self, key: str):
+        v = self._last.get(key)
+        if v is not None and not isinstance(v, np.ndarray):
+            v = self._last[key] = v.cpu().numpy()[:self._last_b]
+        return v
+
+    @property
+    def last_savings(self):
+        """Huffman bits saved by the last encode (the reference program's
+        bits-saved readout, pacfile.py:439), summed over its blocks;
+        fetched at first read.  None before a .wak encode."""
+        v = self._last_host("savings")
+        return None if v is None else int(v.sum())
+
+    @property
+    def last_measure(self):
+        """(savings [b, C], leftover [b]) of the last reservoir-mode
+        encode's measurement pass (extra bits 0), the numbers the reservoir
+        replay ran on; None in the other rate modes.  Fetched at first
+        read."""
+        if self._last.get("measure_savings") is None:
+            return None
+        return (self._last_host("measure_savings"),
+                self._last_host("measure_leftover"))
+
+    @property
+    def last_extras(self):
+        """Channel 0's extra bits of each block of the last encode (any
+        rate mode), fetched at first read."""
+        return self._last_host("extras")
 
     def _chunk(self, b: int) -> int:
         return self.chunk_blocks or _pad_blocks(b)
@@ -622,7 +721,7 @@ class Engine:
             return own + ([rest] if rest > 0 else [])
 
         b, sizes, frames = self._frames(pcm, batches)
-        dev = self.tables()
+        dev = self.consts()
         parts = [analyze(self.cfg, f, dev) for f in frames]
         return b, sizes, _recut(parts, [f.shape[0] for f in frames],
                                 _offsets(sizes))
@@ -637,10 +736,13 @@ class Engine:
         b, sizes, analyses = self._analyze(pcm)
         offs = _offsets(sizes)
         b_pad = offs[-1]
-        dev = self.tables()
+        dev = self.consts()
+        self._last = {}
+        self._last_b = b
 
         if self.rate_mode == "exact":
             extras_chunks, _ = exact.extras_chunked(cfg, analyses, dev, b)
+            self._last["extras"] = torch.cat(extras_chunks)
             return self._stage_payload(analyses, extras_chunks, b, sizes)
         extras = np.zeros(b_pad, np.float32)
         if self.rate_mode == "reservoir":
@@ -649,10 +751,13 @@ class Engine:
                     for a, z in zip(analyses, zero)]
             sav = torch.cat([m["savings"] for m in meas]).cpu().numpy()
             left = torch.cat([m["leftover"] for m in meas]).cpu().numpy()
+            self._last.update(measure_savings=sav[:b],
+                              measure_leftover=left[:b])
             # padded tail blocks take no part: the policy runs over the
             # file's b blocks and their extras stay 0
             extras[:b] = reservoir_extras(sav[:b], left[:b],
                                           cfg.reservoir_withdraw_divisor)[0]
+        self._last["extras"] = extras[:b]
         extras_dev = torch.from_numpy(extras).to(self.device)
         extras_chunks = [extras_dev[offs[k]:offs[k + 1]]
                          for k in range(len(sizes))]
@@ -660,27 +765,57 @@ class Engine:
 
     def _stage_payload(self, analyses, extras_chunks, b: int,
                        sizes: list) -> dict:
-        """The final pass of every chunk with its extra bits, and the
-        staged dense payload download."""
-        cfg, dev = self.cfg, self.tables()
-        outs = [finalize(cfg, a, ex, dev, pack_words=PACK_WORDS)
+        """The final pass of every chunk with its extra bits (Engine(
+        debug_checks=True) checks it here), and the staged download: the
+        dense payload rows (device packing), or the fields the host packer
+        takes (device_pack=False)."""
+        cfg, dev = self.cfg, self.consts()
+        pack_words = PACK_WORDS if self.device_pack else 0
+        outs = [finalize(cfg, a, ex, dev, pack_words=pack_words)
                 for a, ex in zip(analyses, extras_chunks)]
-        dense = bitpack.compact_rows(
+        if self.debug_checks:
+            _debug_check_encode(analyses, outs, exact.max_mant(cfg), sizes)
+        st = dict(outs=outs, b=b, analyses=analyses, extras=extras_chunks,
+                  sizes=sizes)
+        if not self.device_pack:
+            return st
+        st["dense"] = bitpack.compact_rows(
             torch.cat([o["words"] for o in outs]),
             torch.cat([o["nbits"] for o in outs]),
             sum(sizes) * cfg.n_channels * PACK_DENSE_WORDS)
-        return dict(outs=outs, b=b, analyses=analyses,
-                    extras=extras_chunks, sizes=sizes, dense=dense)
+        return st
+
+    def _host_pack(self, st: dict) -> bytes:
+        """The payload of a device_pack=False encode: ONE download of every
+        chunk's fields, then the native serializer (pactpu's host
+        pack_payload)."""
+        cfg = self.cfg
+        c, b = cfg.n_channels, st["b"]
+        outs = st["outs"]
+        host = {k: torch.cat([o[k] for o in outs])[:b].cpu().numpy()
+                for k in ("overall", "tid", "bits", "sf", "sign", "codes",
+                          "lens", "lrms")}
+        r2 = lambda a: a.reshape(c * b, *a.shape[2:])  # noqa: E731
+        return native.pack_file(
+            np.asarray(cfg.band_layout.n_lines, np.int32), cfg.n_scale_bits,
+            cfg.n_mant_size_bits, cfg.n_table_id_bits, r2(host["overall"]),
+            r2(host["tid"]), r2(host["bits"]), r2(host["sf"]),
+            r2(host["sign"]), r2(host["codes"]), r2(host["lens"]),
+            host["lrms"].astype(np.int32), n_channels=c)
 
     def _finish_encode(self, st: dict) -> bytes:
         """Blocking half of an encode: ONE download of the dense payload
         (rows compacted by their word counts, nbits appended), then host
-        framing.  Fallbacks: a chunk whose rows overflow PACK_WORDS is
-        re-finalized with a wider packer; a dense total past its cap
-        downloads the padded rows instead."""
+        framing (or, with device_pack=False, _host_pack).  Fallbacks: a
+        chunk whose rows overflow PACK_WORDS is re-finalized with a wider
+        packer; a dense total past its cap downloads the padded rows
+        instead."""
         cfg = self.cfg
         c = cfg.n_channels
         outs, b, sizes = st["outs"], st["b"], st["sizes"]
+        self._last["savings"] = torch.cat([o["savings"] for o in outs])
+        if not self.device_pack:
+            return self._host_pack(st)
         width = outs[0]["words"].shape[1]
         row_offs = _offsets(sizes, scale=c)
         cap = row_offs[-1] * PACK_DENSE_WORDS
@@ -708,7 +843,7 @@ class Engine:
                 if wide is None:
                     raise ValueError(f"a payload row needs {need} words, "
                                      f"past the {PACK_WORDS_MAX}-word packer")
-                wout = finalize(cfg, a, ex, self.tables(), pack_words=wide)
+                wout = finalize(cfg, a, ex, self.consts(), pack_words=wide)
                 parts.append(native.assemble_rows(
                     _host_u32(wout["words"][:c * nb]),
                     wout["nbits"][:c * nb].cpu().numpy()))
@@ -728,8 +863,9 @@ class Engine:
         (native pack_file, the baseline layout)."""
         cfg = self.cfg
         c, half = cfg.n_channels, cfg.n_mdct_lines
+        self._last = {}
         b, _, frames = self._frames(pcm, _default_batches)
-        dev = self.tables("f32")          # as pactpu: .pac encodes in f32
+        dev = self.consts("f32")          # as pactpu: .pac encodes in f32
         outs = [encode_baseline(cfg, f, dev) for f in frames]
         host = torch.cat([torch.cat([o["overall"][..., None], o["bits"],
                                      o["sf"], o["mant"]], -1)
@@ -755,7 +891,8 @@ class Engine:
     def encode_many(self, pcms) -> list:
         """Batch encode: every file's device work is queued before the
         first payload download blocks.  The device holds every staged
-        file.  The .pac coder encodes file by file."""
+        file.  The .pac coder encodes file by file.  last_savings,
+        last_measure and last_extras describe the last file."""
         if self.fmt == "pac":
             return [self.encode(p) for p in pcms]
         staged = [(write_header(self.cfg, p.shape[0])[0],
@@ -859,15 +996,17 @@ class Engine:
         queues its decode, returning (pcm i16[B, C, N], carry', bad
         bool[C B] or None)."""
         cfg, num_samples, off = read_header(data)
-        _check_config(cfg, precision=self.precision)
+        _check_config(cfg)
         if self.decode_parse == "device":
             _check_device_parse(cfg)
             staged = self._decode_staging_device_parse(data, off, cfg)
             if staged is None:
                 raise ValueError(
-                    "PACTPU_DECODE_PARSE=device: this stream/table set "
-                    "does not fit the device parser (oversized rows or "
-                    "Huffman codes beyond the LUT's bounds)")
+                    "decode_parse='device': this stream or table set does "
+                    "not fit the device parser (rows past its widest "
+                    "bucket, or Huffman codes past the walk LUT's bounds: "
+                    "more than 128 prefixes deeper than 11 bits in a "
+                    "table); decode it with decode_parse='host'")
         else:
             staged = self._decode_staging_host_parse(data, off, cfg)
         return dict(cfg=cfg, num_samples=num_samples, **staged)
@@ -882,7 +1021,7 @@ class Engine:
         bucket, or tables outside the LUT's bounds)."""
         lut = None
         if self.fmt == "wak":
-            lut = hw.device_walk_lut(None, self.device)
+            lut = hw.device_walk_lut(self.tables, self.device)
             if lut is None:
                 return None
         words, nbits = hd.frame_rows(data[off:],
@@ -902,7 +1041,7 @@ class Engine:
         words = np.pad(words, ((0, offs[-1] - rows),
                                (0, w_bucket - words.shape[1])))
         nbits = np.pad(nbits, (0, offs[-1] - rows))
-        dev = self.tables()
+        dev = self.consts()
 
         def run(words_k, nbits_k, carry):
             return payload_decode_chunk(
@@ -924,7 +1063,8 @@ class Engine:
         n_lines = np.asarray(cfg.band_layout.n_lines, np.int32)
         parsed = native.unpack_file(
             data[off:], n_lines, cfg.n_scale_bits, cfg.n_mant_size_bits,
-            cfg.n_table_id_bits if huff else 0, read_lrms=huff, n_channels=c)
+            cfg.n_table_id_bits if huff else 0, read_lrms=huff, n_channels=c,
+            tables=self.tables)
         if parsed["n_cblocks"] % c:
             raise ValueError(f"corrupt payload: {parsed['n_cblocks']} "
                              f"channel-blocks for {c} channels")
@@ -965,7 +1105,7 @@ class Engine:
             rows_all = d2(rows_pad).reshape(b_pad * c, n_words)
             words = [rows_all[offs[k] * c:offs[k + 1] * c]
                      for k in range(len(sizes))]
-        dev = self.tables()
+        dev = self.consts()
         up = self._upload
 
         def run(ba_k, sf_k, words_k, overall_k, lrms_k, carry):
@@ -1000,7 +1140,7 @@ class Engine:
         so that one download brings both."""
         cfg, b = staged["cfg"], staged["b"]
         c, half = cfg.n_channels, cfg.n_mdct_lines
-        carry = torch.zeros((c, half), dtype=self.tables()["basis"].dtype,
+        carry = torch.zeros((c, half), dtype=self.consts()["basis"].dtype,
                             device=self.device)
         pcm_chunks, bad_chunks = [], []
         for args in staged["chunk_args"]:
@@ -1043,35 +1183,93 @@ class Engine:
         return cfg.sample_rate, pcm.copy()
 
 
-def _check_config(cfg: CodecConfig, rate_mode: str = "reservoir",
-                  precision: str = "f32") -> None:
-    """Refuse what the port does not run: the greedy allocators (still to
-    port, ROADMAP queue 1, item 3), the aidan peak modes in float64 (K6 has
-    no float64 form yet, ROADMAP queue 2), anything pactpu refuses too, and
-    what pactpu refuses in the exact mode (it reproduces the reference's
-    water-filled, sine-windowed, intensity-M/S trajectory)."""
+ALLOC_MODES = ("water_fill", "closed_form", "uniform", "const_snr",
+               "const_mnr")
+
+
+def _check_config(cfg: CodecConfig, rate_mode: str = "reservoir") -> None:
+    """Refuse what pactpu refuses: unknown channel counts, windows, peak
+    pickers, allocators and M/S rules ("not ported", as nothing outside
+    these is), and in the exact mode anything but the reference's
+    water-filled, sine-windowed, intensity-M/S trajectory."""
     bad = []
     for field, want in (("n_channels", (1, 2)),
                         ("window", ("sine", "kbd")),
                         ("peak_mode", ("ref", "para", "weighted")),
-                        ("alloc_mode", ("water_fill",)),
+                        ("alloc_mode", ALLOC_MODES),
                         ("ms_decision", ("intensity", "bitalloc"))):
         if getattr(cfg, field) not in want:
             bad.append(f"{field}={getattr(cfg, field)!r}")
-            if field == "alloc_mode":
-                bad[-1] += " (ROADMAP queue 1, item 3: the allocators)"
-    if precision == "f64" and cfg.peak_mode != "ref":
-        bad.append(f"peak_mode={cfg.peak_mode!r} with precision='f64' "
-                   "(ROADMAP queue 2: K6's float64 form)")
     if bad:
         raise ValueError("not ported: " + ", ".join(bad))
     if rate_mode == "exact":
-        for field, want in (("window", "sine"),
-                            ("ms_decision", "intensity")):
+        for field, want, what in (
+                ("alloc_mode", "water_fill", "water-filling"),
+                ("window", "sine", "sine-windowed"),
+                ("ms_decision", "intensity", "spectral-intensity M/S")):
             if getattr(cfg, field) != want:
                 raise ValueError(
-                    f"rate_mode='exact' reproduces the reference's "
+                    f"rate_mode='exact' reproduces the reference's {what} "
                     f"trajectory: {field} must be {want!r}")
+
+
+def _check_tables(tables):
+    """A Huffman table set as Engine(tables=...) takes it (pactpu's
+    checks): None (the shipped set), a path to an .npz in the
+    huffman_tables.npz layout (pactpu_torch.ops.huffman_train.save_tables
+    or pactpu's), or the 4-tuple (lengths [T, S], codes [T, S],
+    escape_lengths [T], escape_codes [T]).  Code lengths must fit the
+    packer's 5 bits and every escape code must be at least 1 bit long.
+    Returns None or the tuple as contiguous int32 arrays."""
+    if tables is None:
+        return None
+    if isinstance(tables, (str, os.PathLike)):
+        with np.load(tables) as z:
+            tables = (z["lengths"], z["codes"], z["escape_lengths"],
+                      z["escape_codes"])
+    tables = tuple(np.ascontiguousarray(t, np.int32) for t in tables)
+    if (int(tables[0].max(initial=0)) > 31
+            or int(tables[2].max(initial=0)) > 31):
+        raise ValueError("Huffman code lengths > 31 bits cannot be packed")
+    if int(tables[2].min(initial=1)) < 1:
+        raise ValueError("every Huffman table needs an escape code of "
+                         "length >= 1 (see huffman_train.train_tables for "
+                         "the escape-only default)")
+    return tables
+
+
+class DebugCheckError(RuntimeError):
+    """Raised by Engine(debug_checks=True) when an encode pass produces
+    non-finite SMRs or an allocation outside [0, max_mant] or of one bit
+    (pactpu.codec.engine.DebugCheckError)."""
+
+
+def _debug_check_encode(analyses, outs, max_mant: int, sizes) -> None:
+    """pactpu's three checks of an encode's chunks (analysis dicts and
+    finalize outputs, tensors or numpy arrays), with its messages; raises
+    DebugCheckError naming the first offending chunk and block."""
+    def host(a):
+        return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+    offs = _offsets(sizes)
+    for k, a in enumerate(analyses):
+        smr = host(a["smr"])
+        if not np.isfinite(smr).all():
+            blk = int(np.argwhere(~np.isfinite(smr))[0][0])
+            raise DebugCheckError(
+                f"non-finite SMR in chunk {k}, block {offs[k] + blk}")
+    for k, o in enumerate(outs):
+        bits = host(o["bits"])
+        if bits.min(initial=0) < 0 or bits.max(initial=0) > max_mant:
+            blk = int(np.argwhere((bits < 0) | (bits > max_mant))[0][0])
+            raise DebugCheckError(
+                f"allocation out of [0, {max_mant}] in chunk {k}, "
+                f"block {offs[k] + blk}")
+        if (bits == 1).any():
+            blk = int(np.argwhere(bits == 1)[0][0])
+            raise DebugCheckError(
+                f"1-bit allocation escaped the refund (Q12) in chunk {k}, "
+                f"block {offs[k] + blk}")
 
 
 def _check_device_parse(cfg: CodecConfig) -> None:

@@ -63,11 +63,16 @@ int pactpu_huffman_walk(const uint32_t* words, const uint32_t* l1,
 
 // K6: full-slope masking-intensity sum per (row, line) over the row's valid
 // masker slots (mspl, lev, bark, valid [rows, n_slots]; drop [rows]);
-// n_slots <= 4096, slots in any order.
+// n_slots <= 4096, slots in any order; in float32 and in float64.
 int pactpu_spread(const float* mspl, const float* lev, const float* bark,
                   const float* valid, const float* drop, const float* zvec,
                   float* out, int rows, int n_slots, int n_lines,
                   cudaStream_t stream);
+int pactpu_spread_f64(const double* mspl, const double* lev,
+                      const double* bark, const double* valid,
+                      const double* drop, const double* zvec, double* out,
+                      int rows, int n_slots, int n_lines,
+                      cudaStream_t stream);
 
 // K7: the exact serial bit reservoir over a chunk's blocks (smr [blocks,
 // channels, n_bands], lrms [blocks, n_bands], cost [blocks, channels,
@@ -89,5 +94,24 @@ int pactpu_exact_scan_f64(const double* smr, const uint8_t* lrms,
                           int channels, int n_bands, int n_tab, double budget,
                           int max_mant, double ms_stop, double lr_stop,
                           int tid_bits, int divisor, cudaStream_t stream);
+
+// K8: kai's closed-form allocation per row (init and take-back loop) from
+// budget [rows] and smr [rows, n_bands] (n_bands <= 1024), in float32 and
+// in float64 (the type of the SMRs and of the init's arithmetic).
+int pactpu_closed_form(const int32_t* budget, const float* smr,
+                       const int32_t* n_lines, int32_t* bits, int rows,
+                       int n_bands, int max_mant_bits, cudaStream_t stream);
+int pactpu_closed_form_f64(const int32_t* budget, const double* smr,
+                           const int32_t* n_lines, int32_t* bits, int rows,
+                           int n_bands, int max_mant_bits,
+                           cudaStream_t stream);
+
+// K9: the constant-SNR/MNR greedy grant walk per row from total [rows] and
+// float32 level [rows, n_bands] (n_bands <= 1024), at most max_steps
+// grants a row.
+int pactpu_grant_fill(const int32_t* total, const float* level,
+                      const int32_t* n_lines, int32_t* bits, int rows,
+                      int n_bands, int max_mant_bits, int max_steps,
+                      cudaStream_t stream);
 
 }  // extern "C"

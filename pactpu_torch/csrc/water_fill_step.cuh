@@ -1,6 +1,8 @@
 // The greedy water-filling of one row by one warp, shared by K2
 // (water_fill.cu: one row a warp, many rows) and K7 (exact_scan.cu: a
-// chain of rows, one after the other, in one warp).
+// chain of rows, one after the other, in one warp); its keys, warp
+// reductions and rounded operations also serve K8 (closed_form.cu) and K9
+// (grant_fill.cu), the other allocators' loops in the same layout.
 //
 // The reference's allocator (reference codec/bitalloc.py:129-184; the XLA
 // loop of pactpu/ops/bitalloc.py:66-119): a step grants one bit to the
@@ -86,6 +88,18 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long k) {
   const unsigned hi = __reduce_max_sync(kFull, hi_k);
   const unsigned lo =
       __reduce_max_sync(kFull, hi_k == hi ? static_cast<unsigned>(k) : 0u);
+  return (static_cast<unsigned long long>(hi) << 32) | lo;
+}
+
+__device__ __forceinline__ unsigned warp_min(unsigned k) {
+  return __reduce_min_sync(kFull, k);
+}
+
+__device__ __forceinline__ unsigned long long warp_min(unsigned long long k) {
+  const unsigned hi_k = static_cast<unsigned>(k >> 32);
+  const unsigned hi = __reduce_min_sync(kFull, hi_k);
+  const unsigned lo = __reduce_min_sync(
+      kFull, hi_k == hi ? static_cast<unsigned>(k) : 0xffffffffu);
   return (static_cast<unsigned long long>(hi) << 32) | lo;
 }
 

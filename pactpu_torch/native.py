@@ -10,8 +10,8 @@ Bound here: ``unpack_file`` (the Huffman bit-walk parser of the decoder),
 ``pack_file`` (the serializer, which the baseline .pac encoder uses),
 ``repack_codes`` (fixed-width mantissa words for the device extractor),
 ``assemble_rows`` / ``assemble_rows_flat`` (framing of device-packed payload
-rows) and ``init_tables`` (the decode trees, uploaded into the library's
-process-wide table slot).
+rows) and ``init_tables`` (the decode trees of the shipped or a trained
+table set, uploaded into the library's process-wide table slot).
 """
 
 from __future__ import annotations
@@ -29,7 +29,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lock = threading.Lock()
 _lib = None
-_tables_ready = False  # the library holds the shipped decode trees
+# the table set the library's decode trees hold: (the tuple last uploaded,
+# its fingerprint), or None before the first upload
+_tables_ready = None
 
 
 def _build() -> str:
@@ -94,25 +96,36 @@ def _i32(a) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.int32)
 
 
-def init_tables() -> None:
-    """Upload the shipped Huffman decode trees (pactpu_torch.ops.huffman.
-    load_tables) into the library, once per process."""
+def init_tables(tables=None) -> None:
+    """Upload Huffman decode trees into the library's process-wide slot:
+    `tables` (lengths [T, S], codes [T, S], escape_lengths [T],
+    escape_codes [T]), e.g. a set trained by pactpu_torch.ops.
+    huffman_train, or None for the shipped set (pactpu_torch.ops.huffman.
+    load_tables).  Uploads only when the set changes: the same tuple is
+    recognised at once, another by a digest of its contents (as
+    pactpu.native.init_tables, whose key is a sum of each array), so
+    engines with different table sets interleave correctly."""
     global _tables_ready
     from pactpu_torch.ops.huffman import load_tables
+    from pactpu_torch.ops.huffman_decode import _tables_fingerprint
     lib = _load()
+    if tables is None:
+        tables = load_tables()
     with _lock:
-        if _tables_ready:
+        if _tables_ready is not None and _tables_ready[0] is tables:
             return
-        lengths, codes, esc_len, esc_codes = load_tables()
-        le = np.ascontiguousarray(lengths, np.uint8)
-        co = np.ascontiguousarray(codes, np.uint32)
-        el = np.ascontiguousarray(esc_len, np.uint8)
-        ec = np.ascontiguousarray(esc_codes, np.uint32)
-        lib.wak_init_tables(
-            _ptr(le, ctypes.c_uint8), _ptr(co, ctypes.c_uint32),
-            _ptr(el, ctypes.c_uint8), _ptr(ec, ctypes.c_uint32),
-            le.shape[0], le.shape[1])
-        _tables_ready = True
+        key = _tables_fingerprint(tables)
+        if _tables_ready is None or _tables_ready[1] != key:
+            lengths, codes, esc_len, esc_codes = tables
+            le = np.ascontiguousarray(lengths, np.uint8)
+            co = np.ascontiguousarray(codes, np.uint32)
+            el = np.ascontiguousarray(esc_len, np.uint8)
+            ec = np.ascontiguousarray(esc_codes, np.uint32)
+            lib.wak_init_tables(
+                _ptr(le, ctypes.c_uint8), _ptr(co, ctypes.c_uint32),
+                _ptr(el, ctypes.c_uint8), _ptr(ec, ctypes.c_uint32),
+                le.shape[0], le.shape[1])
+        _tables_ready = (tables, key)
 
 
 def pack_file(n_lines: np.ndarray, n_scale_bits: int, n_mant_size_bits: int,
@@ -215,15 +228,17 @@ def repack_codes(mant: np.ndarray, ba: np.ndarray, n_lines: np.ndarray,
 
 def unpack_file(payload: bytes, n_lines: np.ndarray, n_scale_bits: int,
                 n_mant_size_bits: int, n_table_id_bits: int,
-                read_lrms: bool = True, n_channels: int = 2):
-    """Parse every channel-block payload in `payload` (past the header).
+                read_lrms: bool = True, n_channels: int = 2, tables=None):
+    """Parse every channel-block payload in `payload` (past the header),
+    through the decode trees of `tables` (init_tables; None = the shipped
+    set).
 
     Returns dict of arrays keyed overall/table_id/ba/sf/mant [R, ...] and
     lrms [R//n_channels, bands], plus the parsed channel-block count R.
     """
     lib = _load()
     if n_table_id_bits > 0:
-        init_tables()
+        init_tables(tables)
     data = np.frombuffer(payload, np.uint8)
     dp = _ptr(data, ctypes.c_uint8)
     r = int(lib.wak_count_blocks(dp, len(data)))

@@ -1,4 +1,4 @@
-"""The port's seven hand-written Hopper kernels, their wrappers, their plain
+"""The port's nine hand-written Hopper kernels, their wrappers, their plain
 PyTorch versions and their launch counts.
 
 | kernel            | replaces (in pactpu/)                 | source (csrc/)   |
@@ -10,10 +10,12 @@ PyTorch versions and their launch counts.
 | huffman_walk      | ops/huffman_walk._walk_kernel         | huffman_walk.cu  |
 | spread_maskers    | ops/pallas_ops._spread_kernel         | spread.cu        |
 | exact_scan        | codec/exact.py:152, a lax.scan        | exact_scan.cu    |
+| closed_form       | ops/bitalloc.py:241, a lax.while_loop | closed_form.cu   |
+| grant_fill        | ops/bitalloc.py:458, a lax.while_loop | grant_fill.cu    |
 
-water_fill, spread_maskers_up and exact_scan also have a float64 form (a
-second C function of the same source, counted under the same name), for
-Engine(precision="f64").
+water_fill, spread_maskers_up, spread_maskers, exact_scan and closed_form
+also have a float64 form (a second C function of the same source, counted
+under the same name), for Engine(precision="f64").
 
 The CUDA sources are compiled by hand with nvcc for sm_90a (one nvcc per
 source, in parallel) into one shared library with a plain C interface
@@ -42,11 +44,14 @@ import time
 import numpy as np
 import torch
 
+from pactpu_torch.ops import quantize as q
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("extract_codes.cu", "water_fill.cu", "pack_words.cu",
-           "spread_up.cu", "huffman_walk.cu", "spread.cu", "exact_scan.cu")
+           "spread_up.cu", "huffman_walk.cu", "spread.cu", "exact_scan.cu",
+           "closed_form.cu", "grant_fill.cu")
 # headers the sources include (a change rebuilds the library)
 HEADERS = ("kernels.h", "water_fill_step.cuh")
 LIB_PATH = os.path.join(BUILD_DIR, "libpactpu_kernels.so")
@@ -58,7 +63,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # versions never count
 LAUNCHES = {"extract_codes": 0, "water_fill": 0, "pack_words": 0,
             "spread_maskers_up": 0, "huffman_walk": 0, "spread_maskers": 0,
-            "exact_scan": 0}
+            "exact_scan": 0, "closed_form": 0, "grant_fill": 0}
 
 # root peek bits of the Huffman walk's two-level LUT (huffman_walk.cu
 # carries the same constant)
@@ -89,13 +94,17 @@ _C_FUNCS = {
     "huffman_walk": ("pactpu_huffman_walk", [_P] * 9 + [_I] * 9 + [_P]),
     "spread_maskers": ("pactpu_spread", [_P] * 7 + [_I] * 3 + [_P]),
     "exact_scan": ("pactpu_exact_scan", _SCAN_ARGS),
+    "closed_form": ("pactpu_closed_form", [_P] * 4 + [_I] * 3 + [_P]),
+    "grant_fill": ("pactpu_grant_fill", [_P] * 4 + [_I] * 4 + [_P]),
 }
 # the float64 forms, by the kernel they count under
 _C_FUNCS_F64 = {
     "water_fill": ("pactpu_water_fill_f64",
                    [_P] * 6 + [_I] * 3 + [_D] * 2 + [_P]),
     "spread_maskers_up": ("pactpu_spread_up_f64", [_P] * 5 + [_I] * 3 + [_P]),
+    "spread_maskers": ("pactpu_spread_f64", [_P] * 7 + [_I] * 3 + [_P]),
     "exact_scan": ("pactpu_exact_scan_f64", _SCAN_ARGS),
+    "closed_form": ("pactpu_closed_form_f64", [_P] * 4 + [_I] * 3 + [_P]),
 }
 _FLOATS = (torch.float32, torch.float64)
 
@@ -612,15 +621,17 @@ def spread_maskers(mspl: torch.Tensor, lev: torch.Tensor, bark: torch.Tensor,
 
     mspl/lev/bark/valid: f32[B, K] slot SPL, upslope coefficient times
     max(SPL - 40, 0), bark and 0/1 validity; drop_db: f32[B] tonal drop;
-    zvec: f32[L] line barks.  Returns f32[B, L]: the sum over valid slots of
+    zvec: f32[L] line barks; all six float32, or all six float64.  Returns
+    [B, L] in their type: the sum over valid slots of
     10^((mspl - drop - 27 on + [dz >= 0] lev on - 96) / 10) with
     dz = zvec[l] - bark and on = max(|dz| - 0.5, 0)."""
     dev = mspl.device
+    dt = mspl.dtype if mspl.dtype in _FLOATS else torch.float32
     for name, a in (("mspl", mspl), ("lev", lev), ("bark", bark),
                     ("valid", valid)):
-        _check(name, a, torch.float32, 2, dev)
-    _check("drop_db", drop_db, torch.float32, 1, dev)
-    _check("zvec", zvec, torch.float32, 1, dev)
+        _check(name, a, dt, 2, dev)
+    _check("drop_db", drop_db, dt, 1, dev)
+    _check("zvec", zvec, dt, 1, dev)
     if (not mspl.shape == lev.shape == bark.shape == valid.shape
             or drop_db.shape[0] != mspl.shape[0]):
         raise ValueError("spread_maskers: shapes disagree")
@@ -629,11 +640,11 @@ def spread_maskers(mspl: torch.Tensor, lev: torch.Tensor, bark: torch.Tensor,
     rows, k = mspl.shape
     if k > 4096:
         raise ValueError("spread_maskers kernel: at most 4096 slots")
-    out = torch.empty((rows, zvec.shape[0]), dtype=torch.float32, device=dev)
+    out = torch.empty((rows, zvec.shape[0]), dtype=dt, device=dev)
     if out.numel():
         _launch("spread_maskers", dev, _ptr(mspl), _ptr(lev), _ptr(bark),
                 _ptr(valid), _ptr(drop_db), _ptr(zvec), _ptr(out), rows, k,
-                zvec.shape[0])
+                zvec.shape[0], f64=dt == torch.float64)
     return out
 
 
@@ -641,8 +652,8 @@ def spread_maskers_plain(mspl, lev, bark, valid, drop_db, zvec,
                          chunk: int = 16) -> torch.Tensor:
     """Plain version of spread_maskers: the one_chunk expression of
     pactpu/ops/psycho.py:286-295, `chunk` rows at a time (a dense [B, K, L]
-    intermediate would be 6.5 GB at B = 3072, K = 513)."""
-    out = torch.empty((mspl.shape[0], zvec.shape[0]), dtype=torch.float32,
+    intermediate would be 6.5 GB at B = 3072, K = 513), in mspl's type."""
+    out = torch.empty((mspl.shape[0], zvec.shape[0]), dtype=mspl.dtype,
                       device=mspl.device)
     for s in range(0, mspl.shape[0], chunk):
         c = slice(s, s + chunk)
@@ -815,3 +826,192 @@ def exact_scan_plain(smr, lrms, cost, n_valid: int, carry, budget: float,
     return (torch.tensor(extras, dtype=torch.int32, device=smr.device),
             torch.tensor([deposit, extra], dtype=torch.int32,
                          device=smr.device))
+
+
+# -- K8 closed_form ----------------------------------------------------------
+
+# running sums of XLA's CPU dot (csrc/closed_form.cu)
+_DOT_LANES = 8
+
+
+def _alloc_check(name: str, budget, vals, n_lines, dtypes) -> None:
+    dev = vals.device
+    _check("budget", budget, torch.int32, 1, dev)
+    _check("n_lines", n_lines, torch.int32, 1, dev)
+    _check(name, vals, dtypes, 2, dev)
+    if budget.shape[0] != vals.shape[0] or n_lines.shape[0] != vals.shape[1]:
+        raise ValueError(f"{name}: shapes disagree")
+
+
+def closed_form(budget: torch.Tensor, smr: torch.Tensor,
+                n_lines: torch.Tensor, max_mant_bits: int) -> torch.Tensor:
+    """kai's closed-form allocation (pactpu.ops.bitalloc.alloc_closed_form,
+    reference baselines/kai/bitalloc.py:84-134): the init of
+    closed_form_r, then the take-back loop, in one launch.
+
+    budget: i32[R]; smr: f32[R, bands] (or f64: the init's arithmetic and
+    the adjusted SMRs are then float64); n_lines: i32[bands].  Returns bits
+    i32[R, bands].  The kernel takes up to MAX_FILL_BANDS bands."""
+    _alloc_check("smr", budget, smr, n_lines, _FLOATS)
+    dev = smr.device
+    if _on_cpu(dev):
+        return closed_form_plain(budget, smr, n_lines, max_mant_bits)
+    rows, n_bands = smr.shape
+    if n_bands > MAX_FILL_BANDS:
+        raise ValueError(f"closed_form kernel: at most {MAX_FILL_BANDS} bands")
+    bits = torch.empty((rows, n_bands), dtype=torch.int32, device=dev)
+    if bits.numel():
+        _launch("closed_form", dev, _ptr(budget), _ptr(smr), _ptr(n_lines),
+                _ptr(bits), rows, n_bands, int(max_mant_bits),
+                f64=smr.dtype == torch.float64)
+    return bits
+
+
+def closed_form_r(budget: torch.Tensor, smr: torch.Tensor,
+                  n_lines: torch.Tensor) -> torch.Tensor:
+    """The closed-form init's real-valued allocation r [R, bands] in smr's
+    type, with the arithmetic of pactpu's engine (the band layout a
+    constant under jit): avg = XLA's CPU dot of smr and n_lines (eight
+    running fused multiply-adds over the bands j = i mod 8 of the whole
+    octets, summed in adjacent pairs, plus the rest fused one by one into a
+    second sum) times 1/sum(n_lines); r = fma(smr - avg, 1/6,
+    budget * (1/sum(n_lines))).  This is XLA's float32 order at the row
+    counts the engine's chunks give; its float64 order is another, so in
+    float64 r can sit an ulp from pactpu's."""
+    dt = smr.dtype
+    rows, n_bands = smr.shape
+    nl = n_lines.to(dt)
+    octets = n_bands // _DOT_LANES * _DOT_LANES
+    acc = torch.zeros((rows, _DOT_LANES), dtype=dt, device=smr.device)
+    for j in range(0, octets, _DOT_LANES):
+        acc = q.fma(smr[:, j:j + _DOT_LANES], nl[j:j + _DOT_LANES], acc)
+    while acc.shape[1] > 1:
+        acc = acc[:, 0::2] + acc[:, 1::2]
+    tail = torch.zeros(rows, dtype=dt, device=smr.device)
+    for j in range(octets, n_bands):
+        tail = q.fma(smr[:, j], nl[j], tail)
+    one = torch.ones((), dtype=dt, device=smr.device)
+    inv_lines = one / nl.sum()
+    avg = (acc[:, 0] + tail) * inv_lines
+    return q.fma(smr - avg[:, None], one / 6.0,
+                 (budget.to(dt) * inv_lines)[:, None])
+
+
+def closed_form_plain(budget, smr, n_lines, max_mant_bits: int,
+                      stats: dict = None) -> torch.Tensor:
+    """Plain version of closed_form: closed_form_r gated (< 2 -> 0, NaN ->
+    0), capped and floored, then takeback_plain."""
+    r = closed_form_r(budget, smr, n_lines)
+    cap = torch.floor(torch.clamp(r, max=float(max_mant_bits)))
+    bits = torch.where(torch.isnan(r) | (r < 2.0), 0.0, cap).to(torch.int32)
+    return takeback_plain(bits, budget, n_lines, smr, max_mant_bits, stats)
+
+
+def takeback_plain(bits0, budget, n_lines, smr, max_mant_bits: int,
+                   stats: dict = None) -> torch.Tensor:
+    """The take-back loop of pactpu/ops/bitalloc.py:183-243 from any bits0
+    i32[R, bands], one trip over all rows at a time, each row stopping once
+    it spends less than its budget (a later trip only retires a band), at
+    most bands x (max_mant_bits + 1) trips.  The arg-min takes the first
+    NaN, else the first of the least.  stats: a dict whose "steps" (trips
+    of every row) and "max_steps" (the longest row's) it sets."""
+    rows, n_bands = smr.shape
+    bits = bits0.to(torch.int32).clone()
+    nl = n_lines.long()
+    total = (bits.long() * nl).sum(1)
+    bud = budget.long()
+    m = smr.clone()
+    live = torch.ones((rows, n_bands), dtype=torch.bool, device=smr.device)
+    row = torch.arange(rows, device=smr.device)
+    trips = torch.zeros(rows, dtype=torch.long, device=smr.device)
+    for _ in range(n_bands * (max_mant_bits + 1)):
+        act = live.any(1) & (total >= bud)
+        if not bool(act.any()):
+            break
+        trips += act
+        key = torch.where(live, m, float("inf"))
+        nan = torch.isnan(key)
+        cand = torch.where(nan.any(1), nan.to(torch.int8).argmax(1),
+                           key.argmin(1))
+        cur = bits[row, cand]
+        dec = torch.clamp(cur - 1, min=0)
+        dec = torch.where(dec == 1, 0, dec)
+        new = torch.where(act, dec, cur)
+        bits[row, cand] = new
+        total = total - (cur - new).long() * nl[cand]
+        m[row, cand] = torch.where(act, m[row, cand] + 6.0, m[row, cand])
+        live[row, cand] = live[row, cand] & ~(act & (new == 0))
+    if stats is not None:
+        stats["steps"] = int(trips.sum())
+        stats["max_steps"] = int(trips.max()) if rows else 0
+    return bits
+
+
+# -- K9 grant_fill -----------------------------------------------------------
+
+def grant_fill(total: torch.Tensor, level: torch.Tensor,
+               n_lines: torch.Tensor, max_mant_bits: int,
+               max_steps: int) -> torch.Tensor:
+    """The constant-SNR/MNR grant walk (pactpu.ops.bitalloc.
+    _greedy_noise_floor_batch, reference codec/bitalloc.py:60-125) with the
+    reference's `remaining > 0` guard (ROADMAP queue 3, fault (b)).
+
+    total: i32[R]; level: f32[R, bands] (float32 in every precision, as
+    pactpu casts it); n_lines: i32[bands]; max_steps: the walk's cap
+    (bitalloc._legacy_iter_bound).  Returns bits i32[R, bands] after the
+    1-bit floor.  The kernel takes up to MAX_FILL_BANDS bands."""
+    _alloc_check("level", total, level, n_lines, torch.float32)
+    dev = level.device
+    if _on_cpu(dev):
+        return grant_fill_plain(total, level, n_lines, max_mant_bits,
+                                max_steps)
+    rows, n_bands = level.shape
+    if n_bands > MAX_FILL_BANDS:
+        raise ValueError(f"grant_fill kernel: at most {MAX_FILL_BANDS} bands")
+    bits = torch.empty((rows, n_bands), dtype=torch.int32, device=dev)
+    if bits.numel():
+        _launch("grant_fill", dev, _ptr(total), _ptr(level), _ptr(n_lines),
+                _ptr(bits), rows, n_bands, int(max_mant_bits),
+                max(0, min(int(max_steps), 2 ** 31 - 1)))
+    return bits
+
+
+def grant_fill_plain(total, level, n_lines, max_mant_bits: int,
+                     max_steps: int, stats: dict = None) -> torch.Tensor:
+    """Plain version of grant_fill: the XLA loop of pactpu/ops/bitalloc.py:
+    417-462 with the `remaining > 0` guard, one step over all rows at a
+    time.  The arg-max takes the first NaN, else the first of the largest
+    (the bands that cannot be granted at -inf); a row whose arg-max cannot
+    be granted changes nothing then or later, and stops.  stats: a dict
+    whose "steps" (grants of every row) and "max_steps" (the most grants
+    of a row) it sets."""
+    rows, n_bands = level.shape
+    dev = level.device
+    alloc = torch.zeros((rows, n_bands), dtype=torch.int32, device=dev)
+    rem = total.long()
+    lev = level.clone()
+    nl = n_lines.long()
+    row = torch.arange(rows, device=dev)
+    stalled = torch.zeros(rows, dtype=torch.bool, device=dev)
+    grants = torch.zeros(rows, dtype=torch.long, device=dev)
+    for _ in range(int(max_steps)):
+        can = ((alloc < max_mant_bits) & (rem[:, None] >= nl[None])
+               & (rem[:, None] > 0))
+        act = can.any(1) & ~stalled
+        if not bool(act.any()):
+            break
+        key = torch.where(can, lev, float("-inf"))
+        nan = torch.isnan(key)
+        cand = torch.where(nan.any(1), nan.to(torch.int8).argmax(1),
+                           key.argmax(1))
+        ok = act & can[row, cand]
+        stalled = stalled | (act & ~ok)
+        grants += ok
+        alloc[row, cand] += ok.to(torch.int32)
+        rem = rem - torch.where(ok, nl[cand], 0)
+        lev[row, cand] = torch.where(ok, lev[row, cand] - 6.0,
+                                     lev[row, cand])
+    if stats is not None:
+        stats["steps"] = int(grants.sum())
+        stats["max_steps"] = int(grants.max()) if rows else 0
+    return torch.where(alloc < 2, 0, torch.clamp(alloc, max=max_mant_bits))

@@ -332,12 +332,12 @@ def test_departure_from_pactpu_as_it_stands(mode):
 
 
 def test_other_modes_still_refused():
-    """What the port does not run is refused: an unknown peak picker, the
-    greedy allocators still to port, and what pactpu refuses too (mono,
-    KBD and the bit-allocation M/S decision are ported:
+    """What the port does not run is refused: an unknown peak picker, an
+    unknown allocator, and what pactpu refuses too (mono, KBD, the
+    bit-allocation M/S decision and the four other allocators are ported:
     tests/test_torch_modes.py)."""
     for kw in (dict(peak_mode="parabolic"), dict(n_channels=3),
-               dict(window="hann"), dict(alloc_mode="uniform"),
+               dict(window="hann"), dict(alloc_mode="greedy"),
                dict(ms_decision="energy")):
         with pytest.raises(ValueError, match="not ported"):
             Engine(device="cpu", cfg=TorchConfig(**kw))

@@ -1,7 +1,7 @@
 """chip_smoke.py's own logic on the CPU: with no CUDA device it refuses to
-run; its main-path, fixture, throughput (one timing), device-parse, aidan
-and modes phases pass on the CPU with the kernels' plain versions on short
-files (phase 1 needs the card)."""
+run; its main-path, fixture, throughput (one timing), device-parse, aidan,
+modes, exact and allocator phases pass on the CPU with the kernels' plain
+versions on short files (phase 1 needs the card)."""
 
 import json
 
@@ -29,7 +29,8 @@ def test_synth_is_seeded():
 
 
 KERNELS = {"extract_codes", "water_fill", "pack_words", "spread_maskers_up",
-           "huffman_walk", "spread_maskers", "exact_scan"}
+           "huffman_walk", "spread_maskers", "exact_scan", "closed_form",
+           "grant_fill"}
 
 
 def test_phases_on_cpu(monkeypatch, capsys):
@@ -78,7 +79,8 @@ def test_mode_needs():
 
 
 def test_new_phases_on_cpu(monkeypatch, capsys):
-    """Phase 5 (device-parse decode) and phase 6 (aidan modes)."""
+    """Phase 5 (device-parse decode) and phase 6 (aidan modes, float32 and
+    float64)."""
     monkeypatch.setattr(chip_smoke, "DEV", "cpu")
     eng = Engine(device="cpu", chunk_blocks=16)
     eng_dev = Engine(device="cpu", chunk_blocks=16, decode_parse="device")
@@ -90,10 +92,14 @@ def test_new_phases_on_cpu(monkeypatch, capsys):
         device="cpu", chunk_blocks=16, **kw), pcm)
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert [x["phase"] for x in lines] == [
-        "5-device-parse", "6-aidan", "6-aidan", "6-aidan-fixture"]
+        "5-device-parse", "6-aidan", "6-aidan", "6-aidan-fixture", "6-aidan",
+        "6-aidan"]
     assert "channel-block 0" in lines[0]["corrupt"]
     assert lines[0]["fixture_max_lsb"] <= 1
-    assert [x["mode"] for x in lines[1:3]] == ["para", "weighted"]
+    aidan = [x for x in lines if x["phase"] == "6-aidan"]
+    assert [(x["mode"], x["precision"]) for x in aidan] == [
+        ("para", "f32"), ("weighted", "f32"), ("para", "f64"),
+        ("weighted", "f64")]
     assert lines[3]["max_lsb"] <= 1
 
 
@@ -114,6 +120,39 @@ def test_exact_phase_on_cpu(monkeypatch, capsys):
     assert len(lines[0]["encode_s_exact"]) == 2
     assert [x["slice"] for x in lines[1:]] == ["stereo", "mono"]
     assert all(x["identical"] and x["differing"] == 0 for x in lines[1:])
+
+
+def test_alloc_phase_on_cpu(monkeypatch, capsys):
+    """Phase 9 at a small size: each allocator in cbr and reservoir by both
+    parse routes with roundtrip_many against serial, pactpu's streams of
+    the allocator fixture, a trained table set, pactpu's trained-table
+    stream, a table set outside the walk LUT (refused by device parse),
+    device_pack=False and debug_checks=True."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    files = [chip_smoke.synth(0.3, 5), chip_smoke.synth(0.2, 6)]
+    launches = chip_smoke.phase9(torch, lambda **kw: Engine(
+        device="cpu", chunk_blocks=16, **kw), files)
+    assert list(launches) == [f"alloc-{a}" for a in chip_smoke.ALLOC_MODES]
+    assert all(set(n) == KERNELS for n in launches.values())
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    alloc = [x for x in lines if x["phase"] == "9-alloc"]
+    assert [(x["alloc"], x["rate_mode"]) for x in alloc] == [
+        (a, r) for a in chip_smoke.ALLOC_MODES for r in ("cbr", "reservoir")]
+    assert all(x["snr_db"] > chip_smoke.SNR_FLOOR_DB
+               and x["fixture_max_lsb"] <= 1 for x in alloc)
+    surface = [x for x in lines if x["phase"] == "9-surface"]
+    assert len(surface) == 1
+    assert "decode_parse='host'" in surface[0]["unfit_refusal"]
+    assert surface[0]["host_pack_launches"]["pack_words"] == 0
+
+
+def test_unfit_tables_break_the_walk_lut():
+    """chip_smoke.unfit_tables: valid for the encoder and the host parser,
+    outside K5's LUT."""
+    from pactpu_torch.ops import huffman_walk as hw
+    tabs = chip_smoke.unfit_tables()
+    assert hw.build_walk_lut(tabs) is None
+    assert hw.build_walk_lut(None) is not None
 
 
 def test_first_difference_names_the_stage():
@@ -200,7 +239,9 @@ def test_edge_inputs_are_seeded():
     for make, names in ((chip_smoke.k1_edge, chip_smoke.K1_EDGES),
                         (chip_smoke.k4_edge, chip_smoke.K4_EDGES),
                         (chip_smoke.k2_edge, chip_smoke.K2_EDGES),
-                        (chip_smoke.k6_edge, chip_smoke.K6_EDGES)):
+                        (chip_smoke.k6_edge, chip_smoke.K6_EDGES),
+                        (chip_smoke.k8_edge, chip_smoke.K8_EDGES),
+                        (chip_smoke.k9_edge, chip_smoke.K9_EDGES)):
         for name in names:
             for a, b in zip(make(name), make(name)):
                 np.testing.assert_array_equal(a, b)

@@ -460,3 +460,175 @@ def test_exact_scan(cuda, precision, layout):
     got, want = K.exact_scan(*tail), K.exact_scan_plain(*tail)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert not got[0][30:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", chip_smoke.K8_EDGES)
+def test_closed_form_cases(cuda, name, dtype):
+    """K8 on the named edge inputs of chip_smoke.k8_edge, in both types,
+    bit-equal with its plain version."""
+    budget, smr, n_lines, max_mant = chip_smoke.k8_edge(name)
+    args = (torch.from_numpy(budget).to(cuda),
+            torch.from_numpy(smr).to(cuda, dtype),
+            torch.from_numpy(n_lines).to(cuda), max_mant)
+    K.reset_launches()
+    out = K.closed_form(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["closed_form"] == 1
+    assert torch.equal(out, K.closed_form_plain(*args))
+
+
+@pytest.mark.parametrize("n_bands", [1, 33, 96, 200, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_closed_form_many_bands(cuda, n_bands, dtype):
+    """K8 at one band, two and three slots a lane, and the wide form, on
+    ragged row counts, with budgets from below zero to past the cap."""
+    rng = np.random.default_rng(n_bands)
+    rows = 37
+    n_lines = rng.integers(0, 30, n_bands).astype(np.int32)
+    lines = max(1, int(n_lines.sum()))
+    args = (torch.from_numpy(rng.integers(-lines, 17 * lines, rows)
+                             .astype(np.int32)).to(cuda),
+            torch.from_numpy(rng.uniform(-30, 90, (rows, n_bands)))
+            .to(cuda, dtype),
+            torch.from_numpy(n_lines).to(cuda), 16)
+    out = K.closed_form(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.closed_form_plain(*args))
+
+
+@pytest.mark.parametrize("name", chip_smoke.K9_EDGES)
+def test_grant_fill_cases(cuda, name):
+    """K9 on the named edge inputs of chip_smoke.k9_edge (NaN and infinite
+    levels, a walk that stops on a band it cannot grant, zero-line bands)
+    bit-equal with its plain version."""
+    from pactpu_torch.ops import bitalloc
+    total, level, n_lines, max_mant, cap = chip_smoke.k9_edge(name)
+    args = (torch.from_numpy(total).to(cuda), torch.from_numpy(level).to(cuda),
+            torch.from_numpy(n_lines).to(cuda), max_mant,
+            bitalloc._legacy_iter_bound(cap, n_lines, n_lines.shape[0]))
+    K.reset_launches()
+    out = K.grant_fill(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["grant_fill"] == 1
+    assert torch.equal(out, K.grant_fill_plain(*args))
+
+
+@pytest.mark.parametrize("n_bands", [1, 33, 96, 200, 1024])
+def test_grant_fill_many_bands(cuda, n_bands):
+    """K9 at one band, two and three slots a lane and the wide form, and
+    with a step cap that stops every row early."""
+    rng = np.random.default_rng(n_bands)
+    rows = 37
+    n_lines = rng.integers(0, 30, n_bands).astype(np.int32)
+    lines = max(1, int(n_lines.sum()))
+    base = (torch.from_numpy(rng.integers(-5, 17 * lines, rows)
+                             .astype(np.int32)).to(cuda),
+            torch.from_numpy(rng.uniform(-30, 90, (rows, n_bands))
+                             .astype(np.float32)).to(cuda),
+            torch.from_numpy(n_lines).to(cuda), 16)
+    for steps in (40 * lines, 7):
+        out = K.grant_fill(*base, steps)
+        torch.cuda.synchronize()
+        assert torch.equal(out, K.grant_fill_plain(*base, steps))
+
+
+@pytest.mark.parametrize("name", chip_smoke.K6_EDGES)
+def test_spread_maskers_f64_cases(cuda, name):
+    """K6's float64 form on the named edge inputs of chip_smoke.k6_edge,
+    within chip_smoke.K6_F64_RTOL of its plain version."""
+    args = [torch.from_numpy(a).to(cuda).double()
+            for a in chip_smoke.k6_edge(name)]
+    out = K.spread_maskers(*args)
+    plain = K.spread_maskers_plain(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float64
+    assert bool(((out - plain).abs()
+                 <= chip_smoke.K6_F64_RTOL * plain.abs() + 1e-300).all())
+
+
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+@pytest.mark.parametrize("alloc", ["closed_form", "uniform", "const_snr",
+                                   "const_mnr"])
+def test_allocators_match_the_cpu(cuda, alloc, precision):
+    """Each allocator on the rows of one analysis (made on the CPU): the
+    card's allocation (K8, K9 or the prefix compare) equals the CPU's; and
+    an engine with it on the card decodes the CPU engine's stream within
+    1 LSB by both routes, its own stream within 0.1 dB and 1%, launching
+    its allocator's kernel."""
+    from pactpu_torch import Engine
+    from pactpu_torch.codec import engine as E
+    from pactpu_torch.ops import bitalloc
+    cfg = CodecConfig(alloc_mode=alloc)
+    pcm = chip_smoke.synth(48 * 1024 / chip_smoke.FS, 5)
+    tables = E.device_tables(cfg, "cpu", precision)
+    a = E.analyze(cfg, chip_smoke.chunk_frames(torch, pcm, 48, "cpu"),
+                  tables)
+    pk = E.psycho.band_max(torch.abs(a["mixed"]), tables["lay"], fill=0.0)
+    level = {"const_snr": E.psycho.spl(4.0 * pk * pk)
+             - 6.02 * a["overall"][..., None].to(pk.dtype),
+             "const_mnr": a["smr"]}.get(alloc)
+    n_lines = cfg.band_layout.n_lines
+    total = (torch.arange(48, dtype=torch.int32) * 97 + 1500)
+
+    def allocate(dev, ch):
+        t = total.to(dev)
+        if alloc == "closed_form":
+            return bitalloc.alloc_closed_form(t, 16, n_lines,
+                                              a["smr"][:, ch].to(dev))
+        if alloc == "uniform":
+            return bitalloc.alloc_uniform_batch(t, 16, n_lines, 9000)
+        return getattr(bitalloc, f"alloc_{alloc}_batch")(
+            t, 16, n_lines, level[:, ch].to(dev), 9000)
+
+    for ch in range(2):
+        assert torch.equal(allocate(cuda, ch).cpu(), allocate("cpu", ch))
+    cpu = Engine(device="cpu", cfg=cfg, precision=precision)
+    stream = cpu.encode(pcm)
+    _, gold = cpu.decode(stream)
+    for route in ("host", "device"):
+        _, out = Engine(device=cuda, cfg=cfg, precision=precision,
+                        decode_parse=route).decode(stream)
+        assert int(np.abs(out.astype(np.int32) - gold).max()) <= 1
+    card = Engine(device=cuda, cfg=cfg, precision=precision)
+    K.reset_launches()
+    mine = card.encode(pcm)
+    kern = {"closed_form": "closed_form", "uniform": None,
+            "const_snr": "grant_fill", "const_mnr": "grant_fill"}[alloc]
+    if kern:
+        assert K.LAUNCHES[kern] == 4         # 2 channels x 2 passes
+    assert K.LAUNCHES["water_fill"] == 0
+    _, out = card.decode(mine)
+    snr = [chip_smoke.snr_db(pcm, x) for x in (out, gold)]
+    assert abs(snr[0] - snr[1]) <= 0.1
+    assert abs(len(mine) - len(stream)) <= 0.01 * len(stream)
+
+
+def test_engine_surface_on_the_card(cuda):
+    """device_pack=False: the same bytes and no K3 launch; a trained table
+    set decodes by both routes to the shipped cbr stream's samples; a set
+    outside K5's LUT raises on the device route only."""
+    from pactpu_torch import Engine
+    from pactpu_torch.ops import huffman_train
+    pcm = chip_smoke.synth(1.0, 8)
+    main = Engine(device=cuda).encode(pcm)
+    K.reset_launches()
+    assert Engine(device=cuda, device_pack=False).encode(pcm) == main
+    assert K.LAUNCHES["pack_words"] == 0
+    shipped = Engine(device=cuda, rate_mode="cbr")
+    _, ref = shipped.decode(shipped.encode(pcm))
+    hist = np.zeros(huffman_train.NUM_SYMBOLS, np.int64)
+    hist[:200] = np.arange(200, 0, -1) * 50
+    tabs = huffman_train.train_tables({t: hist for t in range(1, 11)})
+    stream = Engine(device=cuda, rate_mode="cbr", tables=tabs).encode(pcm)
+    for route in ("host", "device"):
+        _, out = Engine(device=cuda, rate_mode="cbr", tables=tabs,
+                        decode_parse=route).decode(stream)
+        assert np.array_equal(out, ref)
+    unfit = chip_smoke.unfit_tables()
+    stream = Engine(device=cuda, rate_mode="cbr", tables=unfit).encode(pcm)
+    _, out = Engine(device=cuda, rate_mode="cbr", tables=unfit).decode(stream)
+    assert np.array_equal(out, ref)
+    with pytest.raises(ValueError, match="decode_parse='host'"):
+        Engine(device=cuda, rate_mode="cbr", tables=unfit,
+               decode_parse="device").decode(stream)

@@ -208,8 +208,8 @@ def test_pac_batches_independent_of_chunk_blocks(monkeypatch):
 
 def test_refusals():
     """pactpu's exact-mode refusals (water-fill, sine window, intensity
-    M/S, no .pac); float64 refuses the aidan peak modes (no float64 K6)
-    and an unknown precision."""
+    M/S, no .pac); float64 accepts the aidan peak modes (K6's float64
+    form) and refuses an unknown precision."""
     te.Engine(device="cpu", rate_mode="exact", precision="f64")
     for fields in (dict(window="kbd"), dict(ms_decision="bitalloc")):
         with pytest.raises(ValueError, match="rate_mode='exact'"):
@@ -219,9 +219,9 @@ def test_refusals():
         te.Engine(device="cpu", rate_mode="exact", fmt="pac")
     for mode in ("para", "weighted"):
         te.Engine(device="cpu", cfg=TorchConfig(peak_mode=mode))
-        with pytest.raises(ValueError, match="not ported.*K6"):
-            te.Engine(device="cpu", precision="f64",
-                      cfg=TorchConfig(peak_mode=mode))
+        eng = te.Engine(device="cpu", precision="f64",
+                        cfg=TorchConfig(peak_mode=mode))
+        assert eng.consts()["psy"]["zvec"].dtype == torch.float64
     with pytest.raises(ValueError, match="unknown precision"):
         te.Engine(device="cpu", precision="f16")
 

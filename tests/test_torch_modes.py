@@ -274,13 +274,18 @@ def test_batch_and_range_equal_serial(mode):
 
 
 def test_config_checks():
-    """The new modes are accepted; what is still to port is refused with
-    its ROADMAP item, and pactpu's own format checks hold."""
+    """The new modes are accepted; the four other allocators are accepted
+    in cbr and reservoir and refused by the exact mode, as pactpu refuses
+    them, and pactpu's own format checks hold."""
     for fields, fmt in MODES.values():
         Engine(device="cpu", cfg=TorchConfig(**fields), fmt=fmt)
     for alloc in ("closed_form", "uniform", "const_snr", "const_mnr"):
-        with pytest.raises(ValueError, match="ROADMAP queue 1, item 3"):
-            Engine(device="cpu", cfg=TorchConfig(alloc_mode=alloc))
+        for rate in ("cbr", "reservoir"):
+            Engine(device="cpu", cfg=TorchConfig(alloc_mode=alloc),
+                   rate_mode=rate)
+        with pytest.raises(ValueError, match="water-filling trajectory"):
+            Engine(device="cpu", rate_mode="exact",
+                   cfg=TorchConfig(alloc_mode=alloc))
     Engine(device="cpu", rate_mode="exact")
     for fields in (dict(window="kbd"), dict(ms_decision="bitalloc")):
         with pytest.raises(ValueError, match="rate_mode='exact'"):

@@ -93,7 +93,7 @@ def main() -> int:
                                    pcm)
         extras, _ = stage("encode/cost-tables+exact-scan",
                           exact.extras_chunked, cfg, analyses,
-                          eng.tables(), b)
+                          eng.consts(), b)
         st = stage("encode/finalize", eng._stage_payload, analyses, extras,
                    b, sizes)
         payload = stage("encode/download+assemble", eng._finish_encode, st)
