@@ -6,7 +6,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints one line; any failure raises and exits non-zero):
 
 0. environment: the card's name and power limit, torch and CUDA versions,
-   the build times of the nine CUDA kernels (nvcc, sm_90a) and of the
+   the build times of the ten CUDA kernels (nvcc, sm_90a) and of the
    native bitstream runtime (g++);
 1. kernel parity at their paths' shapes: K1-K3 and K5 bit for bit against
    their plain PyTorch versions, K4 and K6 within a stated tolerance, each
@@ -44,8 +44,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    SNR above the floor, each step's kernels launched; mono .wak and
    stereo .pac also against their JAX fixtures
    (tests/data/torch_port_fixture_modes.npz) by both routes;
-8. the exact rate mode (kernel K7): Engine(rate_mode="exact") on the 60 s
-   file with 128- and 512-block chunks (the same bytes), decoded, SNR
+8. the exact rate mode (kernels K10 and K7): Engine(rate_mode="exact") on
+   the 60 s file with 128- and 512-block chunks (the same bytes), decoded, SNR
    above the floor, its encode time beside the reservoir mode's; and
    Engine(rate_mode="exact", precision="f64") on a 40-block stereo slice
    and its first channel against the float64 oracle
@@ -86,10 +86,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
    the 60 s file's first 512 blocks.
 
 Phase 1 also holds K2 past 32 bands (k2_edge "40-bands") and in float64,
-K4 and K6 in float64, K5 on a 96-band stream, K7 on a real 512-block
-chunk in float32 and float64, and K8 (both types) and K9 on the rows of
-that chunk and on the edge inputs of k8_edge / k9_edge to their plain
-versions.
+K4 and K6 in float64, K5 on a 96-band stream, K10 and K7 on a real
+512-block chunk in float32 and float64 (K10 also mono, on a trained table
+set, on 96 bands and with 6 size bits; K7 also on a padded tail, mono, 40
+and 96 bands), and K8 (both types) and K9 on the rows of that chunk and on
+the edge inputs of k8_edge / k9_edge to their plain versions.
 
 Then a JSON line with each kernel's launches (on its path, and on every
 path and mode measured), error and times, the nvidia-smi line, and last
@@ -155,13 +156,15 @@ REPLACES = {                 # the TPU kernel body each CUDA kernel replaces
                     "none: pactpu/ops/bitalloc.py:241 (lax.while_loop)"),
     "grant_fill": ("grant_fill.cu",
                    "none: pactpu/ops/bitalloc.py:458 (lax.while_loop)"),
+    "cost_table": ("cost_table.cu",
+                   "none: pactpu/codec/exact.py:106 (lax.map)"),
 }
 # the path whose launches each kernel's "launches" reports
 PATH_OF = {"extract_codes": "main", "water_fill": "main",
            "pack_words": "main", "spread_maskers_up": "main",
            "huffman_walk": "device-parse", "spread_maskers": "aidan",
            "exact_scan": "exact", "closed_form": "alloc-closed_form",
-           "grant_fill": "alloc-const_mnr"}
+           "grant_fill": "alloc-const_mnr", "cost_table": "exact"}
 # phase 11's bit rates: the default and one whose rows take the wide packer
 DIST_BPS = (2.27, 4.93)
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, and float32 operations/s outside
@@ -440,6 +443,8 @@ def k2_edge(name: str):
 # a layout of 96 bands (64 of 8 lines, 32 of 16): past the 64 bands that
 # K5 once took by value, three bands a lane of K2 and K7
 WIDE_BANDS = (8,) * 64 + (16,) * 32
+# 40 bands: two a lane in K2's and K7's warps
+BANDS_40 = (16,) * 24 + (40,) * 16
 
 
 def k6_edge(name: str):
@@ -714,6 +719,26 @@ def k7_args(torch, cfg, dev_tables, pcm: np.ndarray, blocks: int,
             exact.max_mant(cfg), cfg.ms_stop_threshold_db,
             cfg.lr_stop_threshold_db, cfg.n_table_id_bits,
             cfg.reservoir_withdraw_divisor)
+
+
+def k10_args(torch, cfg, dev_tables, pcm: np.ndarray, blocks: int,
+             tables=None):
+    """K10 cost_table's arguments on one chunk of pcm under cfg (float64
+    where dev_tables are): the chunk's MDCT lines (engine.analyze's
+    "mixed"), the band layout, the Huffman table set's code and escape
+    lengths (dev_tables' own, or `tables`, a 4-tuple of arrays as
+    Engine(tables=...) takes it), the scale-factor bits and the
+    allocation cap."""
+    from pactpu_torch.codec import engine as E
+    from pactpu_torch.codec import exact
+    dev = dev_tables["win"].device
+    a = E.analyze(cfg, chunk_frames(torch, pcm[:, :cfg.n_channels], blocks,
+                                    dev), dev_tables)
+    lens, _, esc, _ = (dev_tables["tabs"] if tables is None else tuple(
+        torch.as_tensor(np.ascontiguousarray(t, np.int32), device=dev)
+        for t in tables))
+    return (a["mixed"].contiguous(), dev_tables["lay"], lens, esc,
+            cfg.n_scale_bits, exact.max_mant(cfg))
 
 
 def main_path_inputs(torch, dev_tables, pcm: np.ndarray, blocks: int = 512,
@@ -1336,17 +1361,60 @@ def phase1_bands_f64_exact(torch, pcm: np.ndarray, record, res: dict,
                   f"version on the 96-band {what} rows")
     extra["huffman_walk"]["bands_96_rows"] = int(rows_w.shape[0])
 
+    # K10 on the first 512 blocks of the file, float32 then float64, bit
+    # for bit; then a mono chunk, a trained table set, the 96-band layout
+    # and 6 mantissa-size bits
+    for prec, tables in (("f32", E.device_tables(cfg, "cuda")),
+                         ("f64", dev64)):
+        a10 = k10_args(torch, cfg, tables, pcm, blocks)
+        out = K.cost_table(*a10)
+        check(torch.equal(out, K.cost_table_plain(*a10)),
+              f"K10 ({prec}) differs from its plain version")
+        # bytes: the lines, the tables and the band layout in, the cost
+        # out; operations: per line and allocation the quantizer's (about
+        # 8) and one length a table
+        lines = a10[0].numel()
+        moved = nbytes(a10[0], a10[1]["n_lines"], a10[2], a10[3], out)
+        ops = a10[5] * lines * (8 + a10[2].shape[0])
+        if prec == "f32":
+            record("cost_table", 0.0, lambda: K.cost_table(*a10),
+                   lambda: K.cost_table_plain(*a10), moved, ops, plain_runs=3)
+            r = extra["cost_table"]
+        else:
+            r = res["cost_table"]["f64"] = times(
+                lambda: K.cost_table(*a10), lambda: K.cost_table_plain(*a10),
+                moved, ops)
+        r.update(items=a10[0].shape[0] * a10[0].shape[1],
+                 allocations=a10[5], cost_bytes=nbytes(out))
+    for what, c10, tabs in (
+            ("mono", CodecConfig(n_channels=1), None),
+            ("trained tables", cfg, trained_tables()),
+            ("96 bands", wide, None),
+            ("6 size bits", CodecConfig(n_mant_size_bits=6), None)):
+        a10 = k10_args(torch, c10, E.device_tables(c10, "cuda"), pcm, 64,
+                       tabs)
+        check(torch.equal(K.cost_table(*a10), K.cost_table_plain(*a10)),
+              f"K10 differs from its plain version on the {what} chunk")
+
     # K7 on the first 512 blocks of the file, float32 then float64, from a
-    # zero carry; then the chain on: a 300-block tail from its carry
+    # zero carry; then the chain on: a 300-block tail from its carry.  The
+    # kernel jumps (kernels.water_fill_row_jump_plain): "steps" is the
+    # greedy steps of the chain (the plain version without the jump), the
+    # kernel walks "walked_steps" of them one at a time
     steps = {}
     for prec, tables in (("f32", E.device_tables(cfg, "cuda")),
                          ("f64", dev64)):
         a7 = k7_args(torch, cfg, tables, pcm, blocks)
         ex, carry = K.exact_scan(*a7)
         stats = dict(steps=0, fills=0)
-        pex, pcarry = K.exact_scan_plain(*a7, stats=stats)
+        walked = dict(steps=0, fills=0)
+        pex, pcarry = K.exact_scan_plain(*a7, stats=stats, jump=False)
         check(torch.equal(ex, pex) and torch.equal(carry, pcarry),
               f"K7 ({prec}) differs from its plain version")
+        check(all(torch.equal(x, y) for x, y in zip(
+            (pex, pcarry), K.exact_scan_plain(*a7, stats=walked)))
+            and walked["steps"] < stats["steps"],
+            f"K7's plain jump ({prec}) differs from the greedy steps")
         tail = (*a7[:3], 300, carry, *a7[5:])
         check(all(torch.equal(x, y) for x, y in zip(
             K.exact_scan(*tail), K.exact_scan_plain(*tail))),
@@ -1370,15 +1438,19 @@ def phase1_bands_f64_exact(torch, pcm: np.ndarray, record, res: dict,
                 moved, ops, plain_runs=1)
         r.update(chain_steps=stats["steps"], fills=stats["fills"],
                  ns_per_step=r["device_ms"] * 1e6 / max(stats["steps"], 1),
-                 gathered_cost_bytes=gathered)
+                 gathered_cost_bytes=gathered,
+                 walked_steps=walked["steps"], jumped=walked["jumped"],
+                 probes=walked["probes"])
     # K7's step inside its chain and its cost around each fill: SMRs near
     # 200 dB (the stop rule never fires) and a zero cost table, with a
     # budget that takes every band to the cap (16 steps a band) or pays for
     # none (one step a band); the difference is free of what a fill costs
-    # besides its steps
+    # besides its steps.  A NaN SMR in band 0 keeps the kernel from
+    # jumping (its grants come first, to the cap), so both take the steps
     rng = np.random.default_rng(7)
     for prec, dt in (("f32", torch.float32), ("f64", torch.float64)):
         smr = torch.from_numpy(200 + rng.random((blocks, 2, 25))).to(dt)
+        smr[:, :, 0] = float("nan")
         a7 = (smr.to(dev), torch.zeros((blocks, 25), dtype=torch.bool,
                                        device=dev),
               torch.zeros((blocks, 2, 25, 17, 10), dtype=torch.int32,
@@ -1412,8 +1484,11 @@ def phase1_bands_f64_exact(torch, pcm: np.ndarray, record, res: dict,
     res["exact_scan"]["f64"].update(
         k2_ns_per_step=k2_ns64,
         chain_bound_ms=steps["f64"]["steps"] * k2_ns64 * 1e-6)
-    # K7's other shapes: mono, and the 96-band layout (three bands a lane)
-    for what, c7 in (("mono", CodecConfig(n_channels=1)), ("96 bands", wide)):
+    # K7's other shapes: mono, 40 bands (two a lane) and the 96-band layout
+    # (three bands a lane, its cost rows read from device memory)
+    for what, c7 in (("mono", CodecConfig(n_channels=1)),
+                     ("40 bands", CodecConfig(band_line_counts=BANDS_40)),
+                     ("96 bands", wide)):
         a7 = k7_args(torch, c7, E.device_tables(c7, "cuda"), pcm, 64, 50,
                      (1234, -56))
         check(all(torch.equal(x, y) for x, y in zip(
@@ -1683,6 +1758,22 @@ ALLOC_MODES = ("closed_form", "uniform", "const_snr", "const_mnr")
 # the kernel each allocator's finalize launches in place of K2
 ALLOC_KERNEL = {"closed_form": "closed_form", "uniform": None,
                 "const_snr": "grant_fill", "const_mnr": "grant_fill"}
+
+
+def trained_tables():
+    """A table set of eight tables trained from geometric symbol
+    histograms made from a seed (pactpu_torch.ops.huffman_train), as
+    Engine(tables=...) takes it."""
+    from pactpu_torch.ops import huffman_train as ht
+    rng = np.random.default_rng(3)
+    hists = {}
+    for tid in range(1, 9):
+        h = np.zeros(ht.NUM_SYMBOLS, np.int64)
+        np.add.at(h, np.minimum(rng.geometric(0.4 / tid, 50_000),
+                                ht.NUM_SYMBOLS - 1), 1)
+        hists[tid] = h
+    return tuple(np.ascontiguousarray(t, np.int32)
+                 for t in ht.train_tables(hists))
 
 
 def unfit_tables(n_tables: int = 10):
@@ -1970,9 +2061,9 @@ def phase8(torch, make_engine, pcm: np.ndarray, chunks=(128, 512),
     fs, out = eng.decode(stream)
     sync(torch)
     launches = dict(K.LAUNCHES)
-    check_launched(launches, ["exact_scan", "water_fill", "pack_words",
-                              "spread_maskers_up", "extract_codes"],
-                   "the exact path")
+    check_launched(launches, ["exact_scan", "cost_table", "water_fill",
+                              "pack_words", "spread_maskers_up",
+                              "extract_codes"], "the exact path")
     parses_back(stream, eng.cfg, pcm)
     snr = snr_db(pcm, out)
     check(fs == FS and np.isfinite(snr) and snr > SNR_FLOOR_DB,
@@ -2027,7 +2118,8 @@ def phase8(torch, make_engine, pcm: np.ndarray, chunks=(128, 512),
         sync(torch)
         t_mine = time.perf_counter() - t0
         f64_launches = dict(K.LAUNCHES)
-        check_launched(f64_launches, ["exact_scan", "water_fill",
+        check_launched(f64_launches, ["exact_scan", "cost_table",
+                                      "water_fill",
                                       "spread_maskers_up", "pack_words"],
                        f"the float64 exact path ({name})")
         diff = first_difference(mine, ref, cfg)
@@ -2167,7 +2259,8 @@ def phase10(torch, make_engine, pcm: np.ndarray, files, ckpt_block=700,
     exact_launches = dict(K.LAUNCHES)
     check(exact == make_engine(rate_mode="exact").encode(x),
           "the exact stream differs from Engine(rate_mode='exact')")
-    check_launched(exact_launches, ["exact_scan"], "the exact stream")
+    check_launched(exact_launches, ["exact_scan", "cost_table"],
+                   "the exact stream")
 
     hits = []
 

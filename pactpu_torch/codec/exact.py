@@ -16,21 +16,20 @@ heavy part is computed for every allocation at once, batch-parallel:
         Huffman code length (or escape length + alloc) of the mantissa the
         band would emit at that allocation
 
-(cost_table: 16 quantize passes), and the serial part is one water-fill
-per channel per block plus a gather of that table: kernel K7
-(pactpu_torch.ops.kernels.exact_scan), one warp walking every block of a
-chunk, the carry chained across chunks on the device.
+(cost_table: kernel K10, pactpu_torch.ops.kernels.cost_table), and the
+serial part is one water-fill per channel per block plus a gather of that
+table: kernel K7 (pactpu_torch.ops.kernels.exact_scan), one warp walking
+every block of a chunk, the carry chained across chunks on the device.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
-from pactpu_torch.ops import huffman, kernels, psycho
-from pactpu_torch.ops import quantize as q
+from pactpu_torch.ops import kernels
 from pactpu_torch.utils.config import CodecConfig
-
-N_ALLOCS = 17          # allocation values 0..16
 
 
 def max_mant(cfg: CodecConfig) -> int:
@@ -40,42 +39,20 @@ def max_mant(cfg: CodecConfig) -> int:
 
 def cost_table(cfg: CodecConfig, analysis: dict, dev: dict) -> torch.Tensor:
     """Huffman bits of every band at every allocation under every table
-    (pactpu.codec.exact.cost_table_body, integer-equal to it):
-    analysis dict (engine.analyze) -> i32[B, C, bands, 17, T], allocation
-    0 all zeros.
-
-    Exact because a band's scale factor depends only on its peak and its
-    allocation (reference codec/codec.py:269-278).  Per allocation a: the
-    scale factors and BFP mantissas of every line at a bits, each line's
-    code length in each table (or that table's escape length + a), and the
-    band sums as differences of an int32 running sum over the lines (the
-    bands are consecutive runs of lines).  A symbol past a table's length
-    reads its last entry, as pactpu's clamped gather does."""
-    mixed = analysis["mixed"]                             # [B, C, half]
-    lay = dev["lay"]
+    (pactpu.codec.exact.cost_table_body, integer-equal to it): analysis
+    dict (engine.analyze) -> i32[B, C, bands, 17, T], allocation 0 all
+    zeros; kernel K10 (kernels.cost_table) on the card, its plain version
+    on the CPU."""
     tab_lens, _, esc_len, _ = dev["tabs"]
-    n_tab, n_sym = tab_lens.shape
-    b, c, _ = mixed.shape
-    n_bands = lay["n_lines"].shape[0]
-    hi = torch.cumsum(lay["n_lines"].long(), 0)
-    lo = hi - lay["n_lines"].long()
-    peak = psycho.band_max(torch.abs(mixed), lay, fill=0.0)
-    out = torch.zeros((b, c, n_bands, N_ALLOCS, n_tab), dtype=torch.int32,
-                      device=mixed.device)
-    zero = torch.zeros((n_tab, b, c, 1), dtype=torch.int32,
-                       device=mixed.device)
-    for a in range(1, max_mant(cfg) + 1):
-        a_t = torch.tensor(a, dtype=torch.int32, device=mixed.device)
-        sf = q.scale_factor(peak, cfg.n_scale_bits, a_t)
-        mant = q.bfp_mantissa(mixed, sf[..., lay["seg"]], cfg.n_scale_bits,
-                              a_t)
-        _, unsigned = huffman.split_sign(mant, a_t)
-        lens = tab_lens[:, torch.clamp(unsigned.long(), max=n_sym - 1)]
-        lens = torch.where(lens > 0, lens, esc_len[:, None, None, None] + a)
-        run = torch.cat([zero, torch.cumsum(lens, -1, dtype=torch.int32)], -1)
-        sums = run[..., hi] - run[..., lo]                # [T, B, C, bands]
-        out[:, :, :, a] = sums.permute(1, 2, 3, 0)
-    return out
+    return kernels.cost_table(analysis["mixed"].contiguous(), dev["lay"],
+                              tab_lens, esc_len, cfg.n_scale_bits,
+                              max_mant(cfg))
+
+
+@lru_cache(maxsize=8)
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream the cost tables run on beside K7 (one a device)."""
+    return torch.cuda.Stream(device)
 
 
 def extras_chunked(cfg: CodecConfig, analyses: list, dev: dict, n_real: int,
@@ -85,20 +62,46 @@ def extras_chunked(cfg: CodecConfig, analyses: list, dev: dict, n_real: int,
     the last chunk's carry.  n_real: the file's real blocks (the padding
     behind them leaves the carry alone, so the chunk size never changes
     the trajectory).  Returns (per-chunk extras f32[size] on the device,
-    the final carry i32[2] on the device); nothing waits for the device."""
+    the final carry i32[2] on the device); nothing waits for the device.
+
+    On the card the cost tables (K10) run on a second stream, one chunk
+    ahead: chunk k + 1's beside chunk k's K7, which waits for its own
+    table by an event, so a chunk's table costs the chain nothing but its
+    first."""
     lay = dev["lay"]
+    device = lay["n_lines"].device
     if carry is None:
-        carry = torch.zeros(2, dtype=torch.int32,
-                            device=lay["n_lines"].device)
+        carry = torch.zeros(2, dtype=torch.int32, device=device)
+    side = _side_stream(device) if device.type == "cuda" else None
+    main = torch.cuda.current_stream(device) if side is not None else None
+    if side is not None:
+        side.wait_stream(main)              # the analyses are queued there
+
+    def table(k: int):
+        if side is None:
+            return cost_table(cfg, analyses[k], dev), None
+        with torch.cuda.stream(side):
+            cost = cost_table(cfg, analyses[k], dev)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return cost, ready
+
     extras, done = [], 0
-    for a in analyses:
+    pending = table(0) if analyses else None
+    for k, a in enumerate(analyses):
+        cost, ready = pending
+        if k + 1 < len(analyses):
+            pending = table(k + 1)
+        if ready is not None:
+            main.wait_event(ready)
+            cost.record_stream(main)
         size = a["smr"].shape[0]
         ex, carry = kernels.exact_scan(
-            a["smr"].contiguous(), a["lrms"].contiguous(),
-            cost_table(cfg, a, dev), n_real - done, carry,
-            float(cfg.bit_budget()), lay["n_lines"], max_mant(cfg),
-            cfg.ms_stop_threshold_db, cfg.lr_stop_threshold_db,
-            cfg.n_table_id_bits, cfg.reservoir_withdraw_divisor)
+            a["smr"].contiguous(), a["lrms"].contiguous(), cost,
+            n_real - done, carry, float(cfg.bit_budget()), lay["n_lines"],
+            max_mant(cfg), cfg.ms_stop_threshold_db,
+            cfg.lr_stop_threshold_db, cfg.n_table_id_bits,
+            cfg.reservoir_withdraw_divisor)
         # as pactpu: the extras go to finalize as float32
         extras.append(ex.to(torch.float32))
         done += size

@@ -1,4 +1,4 @@
-"""The port's nine hand-written Hopper kernels, their wrappers, their plain
+"""The port's ten hand-written Hopper kernels, their wrappers, their plain
 PyTorch versions and their launch counts.
 
 | kernel            | replaces (in pactpu/)                 | source (csrc/)   |
@@ -12,10 +12,11 @@ PyTorch versions and their launch counts.
 | exact_scan        | codec/exact.py:152, a lax.scan        | exact_scan.cu    |
 | closed_form       | ops/bitalloc.py:241, a lax.while_loop | closed_form.cu   |
 | grant_fill        | ops/bitalloc.py:458, a lax.while_loop | grant_fill.cu    |
+| cost_table        | codec/exact.py:106, a lax.map         | cost_table.cu    |
 
-water_fill, spread_maskers_up, spread_maskers, exact_scan and closed_form
-also have a float64 form (a second C function of the same source, counted
-under the same name), for Engine(precision="f64").
+water_fill, spread_maskers_up, spread_maskers, exact_scan, closed_form and
+cost_table also have a float64 form (a second C function of the same
+source, counted under the same name), for Engine(precision="f64").
 
 The CUDA sources are compiled by hand with nvcc for sm_90a (one nvcc per
 source, in parallel) into one shared library with a plain C interface
@@ -44,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from pactpu_torch.ops import huffman
 from pactpu_torch.ops import quantize as q
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,7 +53,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("extract_codes.cu", "water_fill.cu", "pack_words.cu",
            "spread_up.cu", "huffman_walk.cu", "spread.cu", "exact_scan.cu",
-           "closed_form.cu", "grant_fill.cu")
+           "closed_form.cu", "grant_fill.cu", "cost_table.cu")
 # headers the sources include (a change rebuilds the library)
 HEADERS = ("kernels.h", "water_fill_step.cuh")
 LIB_PATH = os.path.join(BUILD_DIR, "libpactpu_kernels.so")
@@ -63,7 +65,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # versions never count
 LAUNCHES = {"extract_codes": 0, "water_fill": 0, "pack_words": 0,
             "spread_maskers_up": 0, "huffman_walk": 0, "spread_maskers": 0,
-            "exact_scan": 0, "closed_form": 0, "grant_fill": 0}
+            "exact_scan": 0, "closed_form": 0, "grant_fill": 0,
+            "cost_table": 0}
 
 # root peek bits of the Huffman walk's two-level LUT (huffman_walk.cu
 # carries the same constant)
@@ -83,6 +86,7 @@ _MASK32 = 0xFFFFFFFF
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_double
 _SCAN_ARGS = [_P] * 7 + [_I] * 5 + [_D, _I, _D, _D, _I, _I, _P]
+_COST_ARGS = [_P] * 6 + [_I] * 7 + [_P]
 # kernel name -> (C symbol in csrc/kernels.h, its argument types); every
 # function ends with the stream and returns cudaGetLastError()
 _C_FUNCS = {
@@ -96,6 +100,7 @@ _C_FUNCS = {
     "exact_scan": ("pactpu_exact_scan", _SCAN_ARGS),
     "closed_form": ("pactpu_closed_form", [_P] * 4 + [_I] * 3 + [_P]),
     "grant_fill": ("pactpu_grant_fill", [_P] * 4 + [_I] * 4 + [_P]),
+    "cost_table": ("pactpu_cost_table", _COST_ARGS),
 }
 # the float64 forms, by the kernel they count under
 _C_FUNCS_F64 = {
@@ -105,6 +110,7 @@ _C_FUNCS_F64 = {
     "spread_maskers": ("pactpu_spread_f64", [_P] * 7 + [_I] * 3 + [_P]),
     "exact_scan": ("pactpu_exact_scan_f64", _SCAN_ARGS),
     "closed_form": ("pactpu_closed_form_f64", [_P] * 4 + [_I] * 3 + [_P]),
+    "cost_table": ("pactpu_cost_table_f64", _COST_ARGS),
 }
 _FLOATS = (torch.float32, torch.float64)
 
@@ -725,6 +731,69 @@ def exact_scan(smr: torch.Tensor, lrms: torch.Tensor, cost: torch.Tensor,
     return extras, carry_out
 
 
+def _row_tables(smr: torch.Tensor, max_mant_bits: int, ms_stop: float,
+                lr_stop: float):
+    """A row's residuals smr - 6 k and statistics smr - 6 (k - 1), k up
+    to max_mant_bits + 1, computed by torch in smr's type as
+    water_fill_plain computes them, as lists of Python floats; the stop
+    thresholds (L/R, M/S) in that type; and the functions that read a
+    band's residual and statistic past the tables (a band the dead key
+    chose)."""
+    dt = smr.dtype
+    width = max_mant_bits + 2
+    k = torch.arange(width, device=smr.device).to(dt)
+    resid_tab = (smr[:, None] - 6.0 * k[None]).tolist()
+    stat_tab = (smr[:, None] - (k[None] - 1.0) * 6.0).tolist()
+    thr = torch.tensor([lr_stop, ms_stop], dtype=dt).tolist()
+
+    def resid(b, nb):
+        if nb < width:
+            return resid_tab[b][nb]
+        return float(smr[b] - 6.0 * torch.tensor(nb, dtype=dt))
+
+    def stat(b, nb):
+        if nb < width:
+            return stat_tab[b][nb]
+        return float(smr[b] - torch.tensor(nb - 1, dtype=dt) * 6.0)
+
+    return resid_tab, thr, resid, stat
+
+
+def _greedy_step(row: dict, max_mant_bits: int, n_lines: list, ms: list,
+                 thr: list, resid, stat) -> None:
+    """One greedy step of water_fill_row_plain on row = {bits, valid,
+    total}, in place: the first band of largest residual (retired bands
+    at _NEG, NaN above all) takes a bit if the budget pays for it, and
+    leaves the running if it could not pay, reached the cap or the stop
+    rule fired (the largest statistic below its threshold)."""
+    bits, valid = row["bits"], row["valid"]
+    cand, best = 0, None
+    for b in range(len(bits)):
+        v = resid(b, bits[b]) if valid[b] else _NEG
+        if math.isnan(v):
+            cand = b
+            break
+        if best is None or v > best:
+            cand, best = b, v
+    now = [stat(b, nb) for b, nb in enumerate(bits)]
+    g = math.nan if any(map(math.isnan, now)) else max(now)
+    kill_stop = g < thr[1 if ms[cand] else 0]
+    can_pay = row["total"] - n_lines[cand] >= 0
+    if can_pay:
+        bits[cand] += 1
+        row["total"] -= n_lines[cand]
+    if kill_stop or not can_pay or bits[cand] >= max_mant_bits:
+        valid[cand] = False
+
+
+def _refund(row: dict, n_lines: list):
+    """The 1-bit bands' bits back (the reference never codes 1-bit
+    mantissas): (bits, leftover)."""
+    refund = sum(nl for nb, nl in zip(row["bits"], n_lines) if nb == 1)
+    return ([0 if nb == 1 else nb for nb in row["bits"]],
+            row["total"] + refund)
+
+
 def water_fill_row_plain(total: int, max_mant_bits: int, n_lines: list,
                          smr: torch.Tensor, ms: list, ms_stop: float,
                          lr_stop: float, stats: dict = None):
@@ -737,59 +806,158 @@ def water_fill_row_plain(total: int, max_mant_bits: int, n_lines: list,
     ints; smr: [bands]; ms: list of bools.  Returns (bits list of ints,
     leftover int); adds the steps taken to stats["steps"] if given."""
     n = smr.shape[0]
-    dt = smr.dtype
-    width = max_mant_bits + 2
-    k = torch.arange(width, device=smr.device).to(dt)
-    resid_tab = (smr[:, None] - 6.0 * k[None]).tolist()
-    stat_tab = (smr[:, None] - (k[None] - 1.0) * 6.0).tolist()
-    thr = torch.tensor([lr_stop, ms_stop], dtype=dt).tolist()
-
-    def resid(b, nb):           # past the table: a band the dead key chose
-        if nb < width:
-            return resid_tab[b][nb]
-        return float(smr[b] - 6.0 * torch.tensor(nb, dtype=dt))
-
-    def stat(b, nb):
-        if nb < width:
-            return stat_tab[b][nb]
-        return float(smr[b] - torch.tensor(nb - 1, dtype=dt) * 6.0)
-
-    bits, valid = [0] * n, [True] * n
+    _, thr, resid, stat = _row_tables(smr, max_mant_bits, ms_stop, lr_stop)
+    row = dict(bits=[0] * n, valid=[True] * n, total=total)
     for _ in range(n * (max_mant_bits + 1)):
-        if not any(valid):
+        if not any(row["valid"]):
             break               # every later step is a no-op
         if stats is not None:
             stats["steps"] += 1
-        cand, best = 0, None
-        for b in range(n):
-            v = resid(b, bits[b]) if valid[b] else _NEG
-            if math.isnan(v):
-                cand = b
+        _greedy_step(row, max_mant_bits, n_lines, ms, thr, resid, stat)
+    return _refund(row, n_lines)
+
+
+# K7's jumps (csrc/exact_scan.cu carries the same constants): bisection
+# probes, and how far below its lower bound a jump's search starts
+JUMP_PROBES = 6
+JUMP_FLOOR_DB = 12.0
+
+
+def water_fill_row_jump_plain(total: int, max_mant_bits: int,
+                              n_lines: list, smr: torch.Tensor, ms: list,
+                              ms_stop: float, lr_stop: float,
+                              stats: dict = None):
+    """water_fill_row_plain's result by K7's shorter chain: jumps over the
+    prefixes of greedy grants that nothing unforeseen can interrupt, and
+    greedy steps between them.
+
+    The greedy grants follow the order of (key desc, band index asc) over
+    every band's keys smr - 6 k, from its bits up to its top, so the
+    grants of keys above a level L are a prefix of them.  A band's top is
+    the cap, or its bits + 1 once the stop statistic g (the largest over
+    all bands of smr - 6 (bits - 1)) is below the band's own threshold:
+    g never grows, so the step that next picks the band grants it (if
+    the budget pays) and stops it.  Within the prefix nothing but the
+    tops retires a band if (1) g after it stays at or above the highest
+    threshold of the bands still below their cap (then none of them
+    stops in it), (2) L > _NEG, the retired bands' key, and (3) its lines
+    fit the budget (each step's leftover is at least the prefix's).  All
+    three are monotone in L: a jump takes the lowest level it finds that
+    passes them, that bound (the threshold of (1), or the lowest key left
+    if every band has its top) less JUMP_FLOOR_DB if it passes, else the
+    best of JUMP_PROBES bisections between it and the highest key left.
+    Then a band the leftover can no longer pay for leaves the running (its
+    one step would have retired it without a grant).  The steps go on
+    until g falls below a threshold it was not below at the last jump,
+    and the next jump starts there.  A row with a NaN SMR, or keys that
+    reach down to _NEG, takes the greedy steps alone.  stats: adds the
+    steps walked one at a time ("steps"), the grants of the jumps
+    ("jumped") and the jumps' probes ("probes")."""
+    n = smr.shape[0]
+    cap = max_mant_bits
+    dt = smr.dtype
+    resid_tab, thr, resid, stat = _row_tables(smr, max_mant_bits, ms_stop,
+                                              lr_stop)
+    row = dict(bits=[0] * n, valid=[True] * n, total=total)
+    bits, valid = row["bits"], row["valid"]
+    iters = n * (cap + 1)
+    if not (n > 0 and cap > 0 and all(
+            not math.isnan(r[0]) and r[cap - 1] > _NEG for r in resid_tab)):
+        for _ in range(iters):
+            if not any(valid):
                 break
-            if best is None or v > best:
-                cand, best = b, v
-        now = [stat(b, bits[b]) for b in range(n)]
-        g = math.nan if any(map(math.isnan, now)) else max(now)
-        kill_stop = g < thr[1 if ms[cand] else 0]
-        can_pay = total - n_lines[cand] >= 0
-        if can_pay:
-            bits[cand] += 1
-            total -= n_lines[cand]
-        if kill_stop or not can_pay or bits[cand] >= max_mant_bits:
-            valid[cand] = False
-    refund = sum(nl for nb, nl in zip(bits, n_lines) if nb == 1)
-    return [0 if nb == 1 else nb for nb in bits], total + refund
+            if stats is not None:
+                stats["steps"] += 1
+            _greedy_step(row, cap, n_lines, ms, thr, resid, stat)
+        return _refund(row, n_lines)
+    thr_of = [thr[1] if ms[b] else thr[0] for b in range(n)]
+
+    def in_dt(v):
+        return torch.tensor(v, dtype=dt)
+
+    def g_now():
+        return max(stat(b, nb) for b, nb in enumerate(bits))
+
+    def jump():
+        g = g_now()
+        top = [min(cap, bits[b] + 1) if g < thr_of[b] else cap
+               for b in range(n)]
+        free = [thr_of[b] for b in range(n) if valid[b] and g >= thr_of[b]]
+        need = max(free) if free else None
+        keys = [resid_tab[b][k] for b in range(n) if valid[b]
+                for k in range(bits[b], top[b])]
+        if not keys:
+            return
+
+        def counts(level):
+            return [sum(1 for k in range(bits[b], top[b])
+                        if resid_tab[b][k] > level) if valid[b] else 0
+                    for b in range(n)]
+
+        def feasible(level):
+            c = counts(level)
+            return (sum(ci * n_lines[b] for b, ci in enumerate(c))
+                    <= row["total"] and
+                    (need is None or max(stat(b, bits[b] + c[b])
+                                         for b in range(n)) >= need))
+
+        lo = float(torch.maximum(in_dt(_NEG), in_dt(
+            need if need is not None else min(keys)) - in_dt(JUMP_FLOOR_DB)))
+        hi = max(keys)
+        probes = 0
+        if not feasible(lo):        # hi always passes: no grant
+            for _ in range(JUMP_PROBES):
+                mid = float(in_dt(lo) + (in_dt(hi) - in_dt(lo)) * 0.5)
+                probes += 1
+                if feasible(mid):
+                    hi = mid
+                else:
+                    lo = mid
+            lo = hi
+        grants = counts(lo)
+        for b, c in enumerate(grants):
+            bits[b] += c
+            row["total"] -= c * n_lines[b]
+            valid[b] = valid[b] and bits[b] < top[b]
+        for b in range(n):
+            if valid[b] and n_lines[b] > row["total"]:
+                valid[b] = False
+        if stats is not None:
+            stats["jumped"] = stats.get("jumped", 0) + sum(grants)
+            stats["probes"] = stats.get("probes", 0) + probes
+
+    def quiet():
+        g = g_now()
+        return g < thr[0], g < thr[1]
+
+    jump()
+    last = quiet()
+    for _ in range(iters):
+        if not any(valid):
+            break
+        if quiet() != last:         # g fell below another threshold
+            jump()
+            last = quiet()
+            if not any(valid):
+                break
+        if stats is not None:
+            stats["steps"] += 1
+        _greedy_step(row, cap, n_lines, ms, thr, resid, stat)
+    return _refund(row, n_lines)
 
 
 def exact_scan_plain(smr, lrms, cost, n_valid: int, carry, budget: float,
                      n_lines, max_mant_bits: int, ms_stop: float,
                      lr_stop: float, tid_bits: int, divisor: int,
-                     stats: dict = None):
+                     stats: dict = None, jump: bool = True):
     """Plain version of exact_scan: the lax.scan step of pactpu/codec/
     exact.py:152-175 as a loop over the blocks on the host, each channel's
-    fill by water_fill_row_plain, total = int(budget + extra) by torch in
-    smr's type.  stats: a dict whose "steps" and "fills" it adds to (the
-    greedy steps of the chain, the fills)."""
+    fill by water_fill_row_jump_plain as the kernel fills (jump=False:
+    water_fill_row_plain, the greedy steps alone; the same result), total
+    = int(budget + extra) by torch in smr's type.  stats: a dict whose
+    "steps" and "fills" it adds to (the steps walked one at a time, the
+    greedy steps of the chain with jump=False; the fills), and with the
+    jump "jumped" and "probes"."""
     _scan_check(smr, lrms, cost, n_lines, carry)
     dt = smr.dtype
     b, c, n_bands = smr.shape
@@ -801,6 +969,7 @@ def exact_scan_plain(smr, lrms, cost, n_valid: int, carry, budget: float,
     bands = torch.arange(n_bands)
     extras = [0] * b
     deposit, extra = (int(v) for v in carry.cpu())
+    fill = water_fill_row_jump_plain if jump else water_fill_row_plain
     for t in range(n_valid):
         take = ((deposit // divisor if deposit > 10 else 0)
                 + (deposit if deposit < 0 else 0))
@@ -809,9 +978,8 @@ def exact_scan_plain(smr, lrms, cost, n_valid: int, carry, budget: float,
         for ch in range(c):
             total = int((budget_t + torch.tensor(chain, dtype=torch.int32)
                          .to(dt)).to(torch.int32))          # truncates
-            bits, chain = water_fill_row_plain(
-                total, max_mant_bits, nl, smr_h[t, ch], lrms_h[t], ms_stop,
-                lr_stop, stats)
+            bits, chain = fill(total, max_mant_bits, nl, smr_h[t, ch],
+                               lrms_h[t], ms_stop, lr_stop, stats)
             if stats is not None:
                 stats["fills"] += 1
             band_cost = cost_h[t, ch][bands, torch.tensor(bits)]  # [bands, T]
@@ -1014,3 +1182,106 @@ def grant_fill_plain(total, level, n_lines, max_mant_bits: int,
         stats["steps"] = int(grants.sum())
         stats["max_steps"] = int(grants.max()) if rows else 0
     return torch.where(alloc < 2, 0, torch.clamp(alloc, max=max_mant_bits))
+
+
+# -- K10 cost_table ----------------------------------------------------------
+
+# allocations 0..16 of the exact mode's cost table
+N_ALLOCS = 17
+# K10's limits: 1,024 lines a block (32 a lane), 16 tables, allocations up
+# to 16 with r = allocation + largest scale factor <= 31
+MAX_COST_LINES = 1024
+
+
+def _cost_check(mixed, lay, tab_lens, esc_len) -> None:
+    dev = mixed.device
+    _check("mixed", mixed, _FLOATS, 3, dev)
+    _check("n_lines", lay["n_lines"], torch.int32, 1, dev)
+    _check("tab_lens", tab_lens, torch.int32, 2, dev)
+    _check("esc_len", esc_len, torch.int32, 1, dev)
+    if esc_len.shape[0] != tab_lens.shape[0] or tab_lens.shape[1] < 1:
+        raise ValueError("cost_table: table shapes disagree")
+
+
+@functools.lru_cache(maxsize=16)
+def _exp2_ks(device: torch.device, dtype: torch.dtype, largest: int,
+             max_mant_bits: int) -> torch.Tensor:
+    """quantize.exp2i(k) for k in [-largest - 1, largest + max_mant_bits]
+    on `device`: every 2^k the cost table's quantizers read, computed by
+    the function the final pass uses."""
+    k = torch.arange(-largest - 1, largest + max_mant_bits + 1,
+                     dtype=torch.int32, device=device)
+    return q.exp2i(k, dtype).contiguous()
+
+
+def cost_table(mixed: torch.Tensor, lay: dict, tab_lens: torch.Tensor,
+               esc_len: torch.Tensor, n_scale_bits: int,
+               max_mant_bits: int) -> torch.Tensor:
+    """Huffman bits of every band at every allocation under every table
+    (pactpu/codec/exact.py:cost_table_body): mixed f32[B, C, half] (or
+    f64) -> i32[B, C, bands, 17, T], allocation 0 and those past
+    max_mant_bits all zeros.  lay: psycho.layout_tensors (the kernel reads
+    its n_lines, the plain version its gather tables); tab_lens i32[T, S]
+    and esc_len i32[T]: the Huffman code lengths (0 = no code: the
+    escape's length + the allocation) and escape lengths.  A symbol past S
+    reads the table's last entry."""
+    _cost_check(mixed, lay, tab_lens, esc_len)
+    dev = mixed.device
+    if _on_cpu(dev):
+        return cost_table_plain(mixed, lay, tab_lens, esc_len, n_scale_bits,
+                                max_mant_bits)
+    b, c, half = mixed.shape
+    n_bands = lay["n_lines"].shape[0]
+    n_tab, n_sym = tab_lens.shape
+    largest = (1 << n_scale_bits) - 1
+    if (half > MAX_COST_LINES or n_tab > MAX_SCAN_TABLES
+            or n_bands > MAX_FILL_BANDS or not 1 <= max_mant_bits < N_ALLOCS
+            or largest + max_mant_bits > 31):
+        raise ValueError(
+            f"cost_table kernel: at most {MAX_COST_LINES} lines, "
+            f"{MAX_SCAN_TABLES} tables, {MAX_FILL_BANDS} bands and "
+            "allocations 1..16 with allocation + largest scale <= 31")
+    exp2 = _exp2_ks(dev, mixed.dtype, largest, int(max_mant_bits))
+    out = torch.empty((b, c, n_bands, N_ALLOCS, n_tab), dtype=torch.int32,
+                      device=dev)
+    if out.numel():
+        _launch("cost_table", dev, _ptr(mixed), _ptr(lay["n_lines"]),
+                _ptr(tab_lens), _ptr(esc_len), _ptr(exp2), _ptr(out), b * c,
+                half, n_bands, n_tab, n_sym, int(n_scale_bits),
+                int(max_mant_bits), f64=mixed.dtype == torch.float64)
+    return out
+
+
+def cost_table_plain(mixed, lay, tab_lens, esc_len, n_scale_bits: int,
+                     max_mant_bits: int) -> torch.Tensor:
+    """Plain version of cost_table, integer-equal to pactpu's
+    cost_table_body.  Exact because a band's scale factor depends only on
+    its peak and its allocation (reference codec/codec.py:269-278).  Per
+    allocation a: the scale factors and BFP mantissas of every line at a
+    bits, each line's code length in each table (or that table's escape
+    length + a), and the band sums as differences of an int32 running sum
+    over the lines (the bands are consecutive runs of lines)."""
+    n_tab, n_sym = tab_lens.shape
+    b, c, _ = mixed.shape
+    n_bands = lay["n_lines"].shape[0]
+    hi = torch.cumsum(lay["n_lines"].long(), 0)
+    lo = hi - lay["n_lines"].long()
+    # psycho.band_max(|mixed|, lay, fill=0.0)
+    peak = torch.where(lay["band_empty"], 0.0,
+                       torch.abs(mixed)[..., lay["band_lines"]].amax(-1))
+    out = torch.zeros((b, c, n_bands, N_ALLOCS, n_tab), dtype=torch.int32,
+                      device=mixed.device)
+    zero = torch.zeros((n_tab, b, c, 1), dtype=torch.int32,
+                       device=mixed.device)
+    for a in range(1, max_mant_bits + 1):
+        # a fill on the device: a host scalar copied up would wait for it
+        a_t = torch.full((), a, dtype=torch.int32, device=mixed.device)
+        sf = q.scale_factor(peak, n_scale_bits, a_t)
+        mant = q.bfp_mantissa(mixed, sf[..., lay["seg"]], n_scale_bits, a_t)
+        _, unsigned = huffman.split_sign(mant, a_t)
+        lens = tab_lens[:, torch.clamp(unsigned.long(), max=n_sym - 1)]
+        lens = torch.where(lens > 0, lens, esc_len[:, None, None, None] + a)
+        run = torch.cat([zero, torch.cumsum(lens, -1, dtype=torch.int32)], -1)
+        sums = run[..., hi] - run[..., lo]                # [T, B, C, bands]
+        out[:, :, :, a] = sums.permute(1, 2, 3, 0)
+    return out

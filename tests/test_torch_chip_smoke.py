@@ -30,7 +30,7 @@ def test_synth_is_seeded():
 
 KERNELS = {"extract_codes", "water_fill", "pack_words", "spread_maskers_up",
            "huffman_walk", "spread_maskers", "exact_scan", "closed_form",
-           "grant_fill"}
+           "grant_fill", "cost_table"}
 
 
 def test_phases_on_cpu(monkeypatch, capsys):

@@ -435,7 +435,7 @@ def test_huffman_walk_96_bands(cuda):
 
 
 @pytest.mark.parametrize("precision", ["f32", "f64"])
-@pytest.mark.parametrize("layout", ["stereo", "mono", "96-bands",
+@pytest.mark.parametrize("layout", ["stereo", "mono", "40-bands", "96-bands",
                                     "200-bands"])
 def test_exact_scan(cuda, precision, layout):
     """K7 against its plain version on a 48-block chunk: all blocks from a
@@ -444,6 +444,7 @@ def test_exact_scan(cuda, precision, layout):
     form of three slots a lane, 200 bands the wide form."""
     from pactpu_torch.codec import engine as E
     cfg = {"stereo": CodecConfig(), "mono": CodecConfig(n_channels=1),
+           "40-bands": CodecConfig(band_line_counts=chip_smoke.BANDS_40),
            "96-bands": CodecConfig(band_line_counts=chip_smoke.WIDE_BANDS),
            "200-bands": CodecConfig(band_line_counts=(5,) * 176 + (6,) * 24)
            }[layout]
@@ -632,3 +633,108 @@ def test_engine_surface_on_the_card(cuda):
     with pytest.raises(ValueError, match="decode_parse='host'"):
         Engine(device=cuda, rate_mode="cbr", tables=unfit,
                decode_parse="device").decode(stream)
+
+
+def _random_tables(rng, n_tab: int, n_sym: int):
+    """A table set of n_tab tables over n_sym symbols with lengths 0..31
+    (0: no code, the escape's length + the allocation) and escape lengths
+    1..31, as int32 tensors (lengths, escape lengths)."""
+    lens = rng.integers(0, 32, (n_tab, n_sym)).astype(np.int32)
+    lens[rng.random((n_tab, n_sym)) < 0.3] = 0
+    esc = rng.integers(1, 32, n_tab).astype(np.int32)
+    return torch.from_numpy(lens), torch.from_numpy(esc)
+
+
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+@pytest.mark.parametrize("layout", ["stereo", "mono", "40-bands", "96-bands",
+                                    "6-size-bits"])
+def test_cost_table(cuda, precision, layout):
+    """K10 against its plain version on a 24-block chunk of a synthetic
+    file, bit for bit."""
+    from pactpu_torch.codec import engine as E
+    cfg = {"stereo": CodecConfig(), "mono": CodecConfig(n_channels=1),
+           "40-bands": CodecConfig(band_line_counts=chip_smoke.BANDS_40),
+           "96-bands": CodecConfig(band_line_counts=chip_smoke.WIDE_BANDS),
+           "6-size-bits": CodecConfig(n_mant_size_bits=6)}[layout]
+    tables = E.device_tables(cfg, cuda, precision)
+    pcm = chip_smoke.synth(24 * 1024 / chip_smoke.FS, 9)
+    args = chip_smoke.k10_args(torch, cfg, tables, pcm, 24)
+    K.reset_launches()
+    out = K.cost_table(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["cost_table"] == 1
+    assert torch.equal(out, K.cost_table_plain(*args))
+
+
+@pytest.mark.parametrize("n_tab,n_sym", [(1, 32768), (5, 100), (10, 4096),
+                                         (16, 32768), (13, 5000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cost_table_tables(cuda, n_tab, n_sym, dtype):
+    """K10 on random table sets of 1 to 16 tables (one to four 4-table
+    words a symbol) over fewer symbols than the staged prefix and more,
+    on lines that reach every symbol (loud lines near each band's peak,
+    zeros, -0.0, overload at and past 1.0)."""
+    from pactpu_torch.codec import engine as E
+    rng = np.random.default_rng(n_tab * n_sym)
+    cfg = CodecConfig()
+    lay = E.device_tables(cfg, cuda)["lay"]
+    lens, esc = _random_tables(rng, n_tab, n_sym)
+    x = rng.uniform(-1.0, 1.0, (8, 2, 1024)) ** 3
+    x[0, :, :64] = 0.0
+    x[0, 1, 5] = -0.0
+    x[1, :, ::50] = 1.0
+    x[2, 0, 3] = -1.5
+    mixed = torch.from_numpy(x).to(dtype).to(cuda)
+    args = (mixed, lay, lens.to(cuda), esc.to(cuda), 4, 16)
+    out = K.cost_table(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.cost_table_plain(*args))
+
+
+def test_cost_table_refuses_on_the_card(cuda):
+    """More than 1,024 lines, 16 tables or an allocation past 16: raises,
+    no launch."""
+    from pactpu_torch.codec import engine as E
+    lay = E.device_tables(CodecConfig(), cuda)["lay"]
+    lens, esc = (t.to(cuda) for t in _random_tables(
+        np.random.default_rng(0), 17, 64))
+    mixed = torch.zeros((2, 2, 1024), device=cuda)
+    K.reset_launches()
+    with pytest.raises(ValueError):
+        K.cost_table(mixed, lay, lens, esc, 4, 16)
+    with pytest.raises(ValueError):
+        K.cost_table(mixed, lay, lens[:4], esc[:4], 5, 16)
+    assert K.LAUNCHES["cost_table"] == 0
+
+
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+@pytest.mark.parametrize("case", ["nan", "neg-inf", "near-neg", "ties",
+                                  "stop-binds", "zero-lines"])
+def test_exact_scan_jump_edges(cuda, precision, case):
+    """K7's jump on chunks whose SMRs the jump must leave to the steps (a
+    NaN band, -inf and SMRs down to the retired bands' key) or take with
+    care (all bands tied, thresholds above most statistics, zero-line
+    bands): extras and carry bit-equal to the plain version's greedy
+    steps."""
+    from pactpu_torch.codec import engine as E
+    cfg = (CodecConfig(band_line_counts=(0, 4, 0) + (40,) * 25 + (20,))
+           if case == "zero-lines" else CodecConfig())
+    tables = E.device_tables(cfg, cuda, precision)
+    pcm = chip_smoke.synth(32 * 1024 / chip_smoke.FS, 11)
+    args = list(chip_smoke.k7_args(torch, cfg, tables, pcm, 32))
+    smr = args[0].clone()
+    if case == "nan":
+        smr[::3, :, 4] = float("nan")
+    elif case == "neg-inf":
+        smr[::2, 1, 7] = float("-inf")
+    elif case == "near-neg":
+        smr[:, 0, 2] = -1e30 + 80.0
+    elif case == "ties":
+        smr[::2] = 20.0
+    elif case == "stop-binds":
+        args[8], args[9] = 25.0, 15.0
+    args[0] = smr.contiguous()
+    got = K.exact_scan(*args)
+    torch.cuda.synchronize()
+    want = K.exact_scan_plain(*args, jump=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -10,18 +10,21 @@ DIR is a directory of kernel sources with this checkout's C interface
 (pactpu_torch/csrc/kernels.h), for example the csrc of an earlier commit
 unpacked with `git archive`.  Each is built with the package's own nvcc
 flags into pactpu_torch/_build/ab_NAME/.  The kernels (extract_codes,
-spread_maskers_up, water_fill, spread_maskers, huffman_walk) run through
-the package's wrappers on chip_smoke.py's phase-1 inputs (one 512-block
-chunk of its 60 s file), each version checked against the plain version
-first, then
-timed in the order other, this, this, other (each turn the median of 20
+spread_maskers_up, water_fill, spread_maskers, huffman_walk, exact_scan,
+cost_table) run through the package's wrappers on chip_smoke.py's phase-1
+inputs (one 512-block chunk of its 60 s file; K7 and K10 in float32),
+each version that has the kernel checked against the plain version first,
+then timed in the order other, this, this, other (each turn the median of 20
 calls with CUDA events, once around the wrapper's call and once of the
 kernel alone: chip_smoke.median_ms and device_ms; `--rounds` times over).
 Prints one JSON line per kernel and version with every turn's medians and
 whether its result equals this checkout's bit for bit, the ptxas lines of
 each build, and the card's name, power limit and SM clock.  For water_fill
 it also prints each version's time a greedy step (per_step), for
-huffman_walk each version's time a decoded line (per_line).
+huffman_walk each version's time a decoded line (per_line), for exact_scan
+each version's time alone a greedy step of the chunk's chain.  The cost
+tables' plain version (the tensor operations kernel K10 replaced) takes
+its turns as version "plain".
 
 `--prefill NAME`: version NAME's huffman_walk writes only the lines of
 active bands (the kernel before the one that writes every line), so its
@@ -31,7 +34,8 @@ huffman_walk did before it took a device array: time huffman_walk only
 against versions of the same convention.
 
 water_fill's time a greedy step is also given for this checkout at 40
-bands (two a lane) and in float64, the forms an older K2 lacks.
+bands (two a lane), in float64 (the forms an older K2 lacks) and on one
+row (one warp on the card, as K7's chain runs).
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -49,7 +53,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 CHOICES = ("extract_codes", "spread_maskers_up", "water_fill",
-           "spread_maskers", "huffman_walk")
+           "spread_maskers", "huffman_walk", "exact_scan", "cost_table")
 
 
 def per_step(torch, K, chip_smoke, libs, use) -> None:
@@ -67,6 +71,8 @@ def per_step(torch, K, chip_smoke, libs, use) -> None:
     smr = smr.to(dev)
     nl40 = torch.cat([nl, nl[:15]])
     forms = {"f32": (nl, lrms, smr),
+             # one row: one warp on the card, as K7 runs its chain
+             "f32-1-row": (nl, lrms[:1], smr[:1]),
              "f32-40-bands": (nl40, torch.zeros((512, 40), dtype=torch.bool,
                                                 device=dev),
                               torch.cat([smr, smr[:, :15]], 1).contiguous()),
@@ -78,17 +84,19 @@ def per_step(torch, K, chip_smoke, libs, use) -> None:
                 continue
             bands = n_lines.shape[0]
             lo, hi = bands, 16 * bands       # steps: all retire / all cap
+            rows = s.shape[0]
             ms = {}
             for steps, budget in ((lo, 0), (hi, 10 ** 7)):
-                total = torch.full((512,), budget, dtype=torch.int32,
+                total = torch.full((rows,), budget, dtype=torch.int32,
                                    device=dev)
                 bits, _ = K.water_fill(total, 16, n_lines, s, ms_flags)
-                if int(bits.sum()) != (0 if budget == 0 else 512 * bands * 16):
+                if int(bits.sum()) != (0 if budget == 0
+                                       else rows * bands * 16):
                     raise chip_smoke.SmokeError("per_step: unexpected grants")
                 ms[steps] = chip_smoke.device_ms(torch, lambda: K.water_fill(
                     total, 16, n_lines, s, ms_flags))
             print(json.dumps({"kernel": "water_fill", "version": name,
-                              "form": form, "bands": bands,
+                              "form": form, "bands": bands, "rows": rows,
                               f"device_ms_{lo}_steps": ms[lo],
                               f"device_ms_{hi}_steps": ms[hi],
                               "ns_per_step": (ms[hi] - ms[lo]) / (hi - lo)
@@ -214,34 +222,58 @@ def main() -> int:
             return walk_prefilled(torch, K, *walk_args)
         return K.huffman_walk(*walk_args)
 
+    plain_args = {}              # the plain versions' extra arguments
+    if "exact_scan" in args.kernels or "cost_table" in args.kernels:
+        tables = device_tables(eng.cfg, "cuda")
+        a7 = chip_smoke.k7_args(torch, eng.cfg, tables, pcm, 512)
+        a10 = chip_smoke.k10_args(torch, eng.cfg, tables, pcm, 512)
+        steps = dict(steps=0, fills=0)
+        # the greedy steps of the chain (the plain version without K7's
+        # jump), the work a step's time is counted against
+        plain_args["exact_scan"] = dict(stats=steps, jump=False)
     calls = {
         "extract_codes": (lambda: K.extract_codes(*chunk["k1"]),
-                          K.extract_codes_plain(*chunk["k1"])),
+                          lambda: K.extract_codes_plain(*chunk["k1"])),
         "spread_maskers_up": (lambda: K.spread_maskers_up(*chunk["k4"]),
-                              K.spread_maskers_up_plain(*chunk["k4"])),
+                              lambda: K.spread_maskers_up_plain(
+                                  *chunk["k4"])),
         "water_fill": (lambda: K.water_fill(*chunk["k2"]),
-                       K.water_fill_plain(*chunk["k2"])),
+                       lambda: K.water_fill_plain(*chunk["k2"])),
         "spread_maskers": (lambda: K.spread_maskers(*chunk["k6"]),
-                           K.spread_maskers_plain(*chunk["k6"])),
+                           lambda: K.spread_maskers_plain(*chunk["k6"])),
         "huffman_walk": (lambda: walk(version[0], chunk["k5"]),
-                         K.huffman_walk_plain(*chunk["k5"])),
+                         lambda: K.huffman_walk_plain(*chunk["k5"])),
+        "exact_scan": (lambda: K.exact_scan(*a7),
+                       lambda **kw: K.exact_scan_plain(*a7, **kw)),
+        "cost_table": (lambda: K.cost_table(*a10),
+                       lambda: K.cost_table_plain(*a10)),
     }
     # bit for bit, else K4_RTOL
-    exact = ("extract_codes", "water_fill", "huffman_walk")
+    exact = ("extract_codes", "water_fill", "huffman_walk", "exact_scan",
+             "cost_table")
 
     def use(name):
-        K._lib = libs[name]
+        K._lib = libs.get(name, libs["this"])
         version[0] = name
 
     try:
         for kernel in args.kernels:
-            fn, plain = calls[kernel]
-            times = {name: [] for name in libs}
-            device = {name: [] for name in libs}
+            fn, plain_fn = calls[kernel]
+            plain = plain_fn(**plain_args.get(kernel, {}))
+            # the versions whose library has the kernel; the cost tables'
+            # plain version (the tensor operations K10 replaced) takes a
+            # turn as "plain"
+            symbol = K._C_FUNCS[kernel][0]
+            names = [n for n, lib in libs.items() if hasattr(lib, symbol)]
+            if kernel == "cost_table":
+                names.append("plain")
+            run = {n: plain_fn if n == "plain" else fn for n in names}
+            times = {name: [] for name in names}
+            device = {name: [] for name in names}
             same, mine = {}, None    # bit for bit this checkout's result?
-            for name in libs:
+            for name in names:
                 use(name)
-                got = fn()
+                got = run[name]()
                 torch.cuda.synchronize()
                 flat = torch.cat([g.flatten().view(torch.int32) for g in (
                     got if isinstance(got, tuple) else (got,))])
@@ -260,17 +292,23 @@ def main() -> int:
             if kernel == "water_fill":   # the longest row's dependent steps
                 print(json.dumps({"kernel": kernel, "chain_steps_max": int(
                     plain[0].sum(1).max()) + plain[0].shape[1]}))
-            others = [n for n in libs if n != "this"]
+            others = [n for n in names if n != "this"]
             for _ in range(args.rounds):
                 for name in others + ["this", "this"] + others[::-1]:
                     use(name)
-                    times[name].append(chip_smoke.median_ms(torch, fn))
-                    device[name].append(chip_smoke.device_ms(torch, fn))
+                    times[name].append(chip_smoke.median_ms(torch, run[name]))
+                    device[name].append(chip_smoke.device_ms(torch,
+                                                             run[name]))
             for name, ms in times.items():
-                print(json.dumps({"kernel": kernel, "version": name,
-                                  "median_ms_by_turn": ms,
-                                  "device_ms_by_turn": device[name],
-                                  "equals_this": same[name]}))
+                line = {"kernel": kernel, "version": name,
+                        "median_ms_by_turn": ms,
+                        "device_ms_by_turn": device[name],
+                        "equals_this": same[name]}
+                if kernel == "exact_scan":   # the chain's greedy steps
+                    line.update(steps=steps["steps"], fills=steps["fills"],
+                                ns_per_step=[d * 1e6 / steps["steps"]
+                                             for d in device[name]])
+                print(json.dumps(line))
         if "water_fill" in args.kernels:
             per_step(torch, K, chip_smoke, libs, use)
         if "huffman_walk" in args.kernels:
