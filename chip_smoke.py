@@ -100,9 +100,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
 Phase 1 also holds K2 past 32 bands (k2_edge "40-bands") and in float64,
 K4 and K6 in float64, K5 on a 96-band stream, K10 and K7 on a real
 512-block chunk in float32 and float64 (K10 also mono, on a trained table
-set, on 96 bands and with 6 size bits; K7 also on a padded tail, mono, 40
-and 96 bands), and K8 (both types) and K9 on the rows of that chunk and on
-the edge inputs of k8_edge / k9_edge to their plain versions.
+set, on a set with a code on every symbol that it reads from device
+memory, on 96 bands and with 6 size bits; K7 also on a padded tail, mono,
+40 and 96 bands), and K8 (both types) and K9 on the rows of that chunk and
+on the edge inputs of k8_edge / k9_edge to their plain versions, with K9's
+walk (the grants its jump takes, the steps it walks, its probes) and its
+ns a walked step apart from the jump.
 
 Then a JSON line with each kernel's launches (on its path, and on every
 path and mode measured), error and times, the nvidia-smi line, and last
@@ -759,6 +762,56 @@ def k10_args(torch, cfg, dev_tables, pcm: np.ndarray, blocks: int,
             cfg.n_scale_bits, exact.max_mant(cfg))
 
 
+def k9_args(torch, dev_tables, pcm: np.ndarray, blocks: int = 512) -> dict:
+    """K9 grant_fill's arguments on the rows of one chunk of pcm (both
+    channels, the flat per-channel budget, the engine's step cap): "mnr",
+    its SMRs as const_mnr takes them, and "snr", its peak SPLs as
+    const_snr does."""
+    from pactpu_torch import CodecConfig
+    from pactpu_torch.codec import engine as E
+    from pactpu_torch.ops import bitalloc, psycho
+    cfg = CodecConfig()
+    dev = dev_tables["win"].device
+    a = E.analyze(cfg, chunk_frames(torch, pcm, blocks, dev), dev_tables)
+    nl = dev_tables["lay"]["n_lines"]
+    budget = int(cfg.bit_budget())
+    total = torch.full((2 * blocks,), budget, dtype=torch.int32, device=dev)
+    cap = bitalloc._legacy_iter_bound(4 * max(budget, 1),
+                                      cfg.band_layout.n_lines, cfg.n_bands)
+    pk = psycho.band_max(torch.abs(a["mixed"]), dev_tables["lay"], fill=0.0)
+    peak_spl = (psycho.spl(4.0 * pk * pk)
+                - 6.02 * a["overall"][..., None].to(pk.dtype))
+    return {what: (total, level.reshape(2 * blocks, -1).float().contiguous(),
+                   nl, 16, cap)
+            for what, level in (("mnr", a["smr"]), ("snr", peak_spl))}
+
+
+def k9_step_rows(torch, n_lines, rows: int) -> dict:
+    """Inputs that time a K9 grant, free of the launch and of what a row
+    costs besides its grants: levels near 200 dB (a band's 16 keys above
+    every later band's) and a budget past 16 bits on every line (400 grants
+    a row at 25 bands) against a zero budget (no grant).  "walk": a NaN
+    level in the last band, so that no row jumps; "jump": finite levels,
+    which the jump takes at once.  form -> (many, none, grants a row),
+    many and none argument tuples of kernels.grant_fill."""
+    dev = n_lines.device
+    n_bands = n_lines.shape[0]
+    lines = int(n_lines.sum())
+    cap = 16 * n_bands + 1
+    gen = torch.Generator().manual_seed(9)
+    level = 200.0 + torch.rand(rows, n_bands, generator=gen)
+    walk = level.clone()
+    walk[:, -1] = float("nan")
+    out = {}
+    for form, lev in (("walk", walk), ("jump", level)):
+        lev = lev.to(dev).contiguous()
+        many = torch.full((rows,), 16 * lines, dtype=torch.int32, device=dev)
+        none = torch.zeros(rows, dtype=torch.int32, device=dev)
+        out[form] = ((many, lev, n_lines, 16, cap),
+                     (none, lev, n_lines, 16, cap), 16 * n_bands)
+    return out
+
+
 def main_path_inputs(torch, dev_tables, pcm: np.ndarray, blocks: int = 512,
                      stream: bytes = None, parts=("k1", "k4", "k2", "k6")):
     """What one chunk of its path hands to K1, K4, K2, K6 and K5: K1's
@@ -1131,10 +1184,13 @@ def phase1_alloc(torch, dev_tables, pcm: np.ndarray, record, res: dict,
     K8 also in float64 on the chunk's float64 analysis, K9 on its SMRs as
     const_mnr takes them and on its peak SPLs as const_snr does) and on
     every k8_edge / k9_edge input; their times, steps a row and ns a step
-    (the kernel's time alone over its longest row's chain)."""
+    (the kernel's time alone over its longest row's chain); K9's walk:
+    the grants its jump takes, the steps it walks one at a time and its
+    probes (kernels.grant_fill_jump_plain), and its ns a walked step and a
+    grant with the jump (k9_step_rows)."""
     from pactpu_torch import CodecConfig
     from pactpu_torch.codec import engine as E
-    from pactpu_torch.ops import bitalloc, psycho
+    from pactpu_torch.ops import bitalloc
     from pactpu_torch.ops import kernels as K
     dev = torch.device("cuda")
     cfg = CodecConfig()
@@ -1191,18 +1247,25 @@ def phase1_alloc(torch, dev_tables, pcm: np.ndarray, record, res: dict,
             check(torch.equal(K.closed_form(*e), K.closed_form_plain(*e)),
                   f"K8 ({dt}) differs from its plain version on {name}")
 
-    # K9 on the chunk's SMRs (const_mnr) and peak SPLs (const_snr)
-    a = E.analyze(cfg, frames, dev_tables)
-    pk = psycho.band_max(torch.abs(a["mixed"]), dev_tables["lay"], fill=0.0)
-    peak_spl = (psycho.spl(4.0 * pk * pk)
-                - 6.02 * a["overall"][..., None].to(pk.dtype))
-    for what, level in (("mnr", a["smr"]), ("snr", peak_spl)):
-        level = level.reshape(2 * blocks, -1).float().contiguous()
-        args = (total, level, nl, 16, cap)
+    # K9 on the chunk's SMRs (const_mnr) and peak SPLs (const_snr); the
+    # walk's grants (the plain version's steps) and the shorter walk of
+    # K9's design as its plain mirror (grant_fill_jump_plain) takes it:
+    # the grants the jump takes, the steps walked (all rows and the most
+    # in a row) and the probes.  The mirror's counts, not the kernel's:
+    # the card shows only that the kernel's result is the same
+    for what, args in k9_args(torch, dev_tables, pcm, blocks).items():
+        level = args[1]
         got = K.grant_fill(*args)
         want, stats = steps_of(K.grant_fill_plain, *args)
         check(torch.equal(got, want),
               f"K9 differs from its plain version on the chunk's {what} rows")
+        jumped, walk = steps_of(K.grant_fill_jump_plain, *args)
+        check(torch.equal(jumped, want), "K9's jump (plain) differs from "
+              f"the steps on the chunk's {what} rows")
+        walk = dict(mirror_walked_steps=walk["steps"],
+                    mirror_walked_max_row=walk["max_walked"],
+                    mirror_jumped_grants=walk["jumped"],
+                    mirror_probes=walk["probes"])
         if what == "mnr":
             record("grant_fill", 0.0, lambda: K.grant_fill(*args),
                    lambda: K.grant_fill_plain(*args),
@@ -1211,14 +1274,15 @@ def phase1_alloc(torch, dev_tables, pcm: np.ndarray, record, res: dict,
             r = extra["grant_fill"]
             r.update(chain_steps_max=stats["max_steps"],
                      steps_per_row=stats["steps"] / level.shape[0],
-                     step_cap=cap,
+                     step_cap=cap, **walk,
                      ns_per_step=r["device_ms"] * 1e6
                      / max(stats["max_steps"], 1))
         else:
             ms = device_ms(torch, lambda: K.grant_fill(*args))
             extra["grant_fill"].update(
                 snr_device_ms=ms, snr_chain_steps_max=stats["max_steps"],
-                snr_steps_per_row=stats["steps"] / level.shape[0])
+                snr_steps_per_row=stats["steps"] / level.shape[0],
+                **{f"snr_{k}": v for k, v in walk.items()})
     for name in K9_EDGES:
         t, lev, n_l, mm, bcap = k9_edge(name)
         e = (up(t), up(lev), up(n_l), mm,
@@ -1247,16 +1311,21 @@ def phase1_alloc(torch, dev_tables, pcm: np.ndarray, record, res: dict,
             - device_ms(torch, lambda: K.closed_form(none, smr, nl, 16)))
     extra["closed_form"].update(step_input_trips=stats["max_steps"],
                                 step_ns=step * 1e6 / stats["max_steps"])
-    level = (200.0 + torch.rand(rows, cfg.n_bands, device=dev)).contiguous()
-    many = torch.full((rows,), 16 * lines, dtype=torch.int32, device=dev)
-    none = torch.zeros(rows, dtype=torch.int32, device=dev)
-    _, stats = steps_of(K.grant_fill_plain, many, level, nl, 16, cap)
-    check(stats["max_steps"] == 16 * cfg.n_bands,
-          "K9's step timing input takes other grants than planned")
-    step = (device_ms(torch, lambda: K.grant_fill(many, level, nl, 16, cap))
-            - device_ms(torch, lambda: K.grant_fill(none, level, nl, 16, cap)))
-    extra["grant_fill"].update(step_input_grants=stats["max_steps"],
-                               step_ns=step * 1e6 / stats["max_steps"])
+    # K9: a walked step on rows that cannot jump (a NaN level), and a grant
+    # with the jump on the same finite rows ("ns a grant, jumps included")
+    for form, (many, none, grants) in k9_step_rows(torch, nl, rows).items():
+        _, stats = steps_of(K.grant_fill_plain, *many)
+        _, walk = steps_of(K.grant_fill_jump_plain, *many)
+        check(stats["max_steps"] == grants and torch.equal(
+            K.grant_fill(*many), K.grant_fill_plain(*many)),
+              f"K9's {form} timing input takes other grants than planned")
+        check((walk["jumped"] == 0) == (form == "walk"),
+              f"K9's {form} timing input jumps otherwise than planned")
+        step = (device_ms(torch, lambda: K.grant_fill(*many))
+                - device_ms(torch, lambda: K.grant_fill(*none)))
+        key = "step_ns" if form == "jump" else "walked_step_ns"
+        extra["grant_fill"].update({key: step * 1e6 / grants,
+                                    f"{form}_input_grants": grants})
     # K2's ns a step (its time alone over its longest row's steps) beside
     # K8's and K9's
     k2_ns = (extra["water_fill"]["device_ms"] * 1e6
@@ -1385,28 +1454,32 @@ def phase1_bands_f64_exact(torch, pcm: np.ndarray, record, res: dict,
     for prec, tables in (("f32", E.device_tables(cfg, "cuda")),
                          ("f64", dev64)):
         a10 = k10_args(torch, cfg, tables, pcm, blocks)
-        out = K.cost_table(*a10)
+        # the table set packed once, as the exact mode keeps it
+        packed = K.pack_tables(a10[2], a10[3])
+        out = K.cost_table(*a10, packed)
         check(torch.equal(out, K.cost_table_plain(*a10)),
               f"K10 ({prec}) differs from its plain version")
-        # bytes: the lines, the tables and the band layout in, the cost
-        # out; operations: per line and allocation the quantizer's (about
-        # 8) and one length a table
+        # bytes: the lines, the packed table set and the band layout in,
+        # the cost out; operations: per line and allocation the
+        # quantizer's (about 8) and one length a table
         lines = a10[0].numel()
-        moved = nbytes(a10[0], a10[1]["n_lines"], a10[2], a10[3], out)
+        moved = nbytes(a10[0], a10[1]["n_lines"], packed[0], out)
         ops = a10[5] * lines * (8 + a10[2].shape[0])
         if prec == "f32":
-            record("cost_table", 0.0, lambda: K.cost_table(*a10),
+            record("cost_table", 0.0, lambda: K.cost_table(*a10, packed),
                    lambda: K.cost_table_plain(*a10), moved, ops, plain_runs=3)
             r = extra["cost_table"]
         else:
             r = res["cost_table"]["f64"] = times(
-                lambda: K.cost_table(*a10), lambda: K.cost_table_plain(*a10),
-                moved, ops)
+                lambda: K.cost_table(*a10, packed),
+                lambda: K.cost_table_plain(*a10), moved, ops)
         r.update(items=a10[0].shape[0] * a10[0].shape[1],
-                 allocations=a10[5], cost_bytes=nbytes(out))
+                 allocations=a10[5], cost_bytes=nbytes(out),
+                 packed_bytes=nbytes(packed[0]))
     for what, c10, tabs in (
             ("mono", CodecConfig(n_channels=1), None),
             ("trained tables", cfg, trained_tables()),
+            ("full tables", cfg, full_tables()),
             ("96 bands", wide, None),
             ("6 size bits", CodecConfig(n_mant_size_bits=6), None)):
         a10 = k10_args(torch, c10, E.device_tables(c10, "cuda"), pcm, 64,
@@ -1792,6 +1865,19 @@ def trained_tables():
         hists[tid] = h
     return tuple(np.ascontiguousarray(t, np.int32)
                  for t in ht.train_tables(hists))
+
+
+def full_tables(n_tables: int = 10):
+    """A table set with a code on every symbol (lengths 9..31, varying by
+    symbol and table; escape lengths 5..): K10's packed set is 256 KB, past
+    a CTA's shared memory, so the kernel reads it from device memory.  As
+    Engine(tables=...) takes a set; only the lengths are read."""
+    n_sym = 1 << 15
+    lengths = (9 + (np.arange(n_sym)[None] * 7 + np.arange(n_tables)[:, None])
+               % 23).astype(np.int32)
+    return (lengths, np.zeros_like(lengths),
+            np.arange(5, 5 + n_tables, dtype=np.int32),
+            np.zeros(n_tables, np.int32))
 
 
 def unfit_tables(n_tables: int = 10):

@@ -44,9 +44,21 @@ def cost_table(cfg: CodecConfig, analysis: dict, dev: dict) -> torch.Tensor:
     zeros; kernel K10 (kernels.cost_table) on the card, its plain version
     on the CPU."""
     tab_lens, _, esc_len, _ = dev["tabs"]
-    return kernels.cost_table(analysis["mixed"].contiguous(), dev["lay"],
-                              tab_lens, esc_len, cfg.n_scale_bits,
-                              max_mant(cfg))
+    mixed = analysis["mixed"].contiguous()
+    return kernels.cost_table(mixed, dev["lay"], tab_lens, esc_len,
+                              cfg.n_scale_bits, max_mant(cfg),
+                              packed_tables(dev) if mixed.is_cuda else None)
+
+
+def packed_tables(dev: dict):
+    """K10's packed form of dev's Huffman table set (kernels.pack_tables),
+    made at the first call and kept in dev beside "tabs", which no one
+    changes once the dict is handed out (engine.device_tables,
+    Engine.consts)."""
+    if "packed" not in dev:
+        tab_lens, _, esc_len, _ = dev["tabs"]
+        dev["packed"] = kernels.pack_tables(tab_lens, esc_len)
+    return dev["packed"]
 
 
 @lru_cache(maxsize=8)
@@ -75,6 +87,7 @@ def exact_extras_chunked(cfg: CodecConfig, analyses: list, dev: dict,
     side = _side_stream(device) if device.type == "cuda" else None
     main = torch.cuda.current_stream(device) if side is not None else None
     if side is not None:
+        packed_tables(dev)                  # packed on main, read on side
         side.wait_stream(main)              # the analyses are queued there
 
     def table(k: int):

@@ -118,20 +118,24 @@ int pactpu_grant_fill(const int32_t* total, const float* level,
 // items (block, channel) of mixed [items, half] (half <= 1024 lines, the
 // bands the n_bands consecutive runs of n_lines): for each allocation
 // 1..max_mant (<= 16, (1 << n_scale_bits) - 1 + max_mant <= 31) and table
-// (n_tab <= 16, lengths tab_lens [n_tab, n_sym] of at most 31 bits, escape
-// lengths esc_len [n_tab]), the band's Huffman bits; exp2_tab [k + L + 1]
-// = quantize.exp2i(k) for k in [-L - 1, L + max_mant], L the largest scale
+// (n_tab <= 16, over n_sym symbols), the band's Huffman bits; packed
+// [tab_rows, W] the table set as kernels.pack_tables packs it (W = 2 words
+// a symbol up to 10 tables, else 4; the symbols below n_pack, then the
+// escapes' entry; tab_rows * W a multiple of 4); exp2_tab [k + L + 1] =
+// quantize.exp2i(k) for k in [-L - 1, L + max_mant], L the largest scale
 // factor; in float32 and in float64 (the type of mixed and exp2_tab).
-int pactpu_cost_table(const float* mixed, const int32_t* n_lines,
-                      const int32_t* tab_lens, const int32_t* esc_len,
-                      const float* exp2_tab, int32_t* cost, int items,
-                      int half, int n_bands, int n_tab, int n_sym,
-                      int n_scale_bits, int max_mant, cudaStream_t stream);
-int pactpu_cost_table_f64(const double* mixed, const int32_t* n_lines,
-                          const int32_t* tab_lens, const int32_t* esc_len,
-                          const double* exp2_tab, int32_t* cost, int items,
-                          int half, int n_bands, int n_tab, int n_sym,
-                          int n_scale_bits, int max_mant,
-                          cudaStream_t stream);
+int pactpu_cost_table_packed(const float* mixed, const int32_t* n_lines,
+                             const uint32_t* packed, const float* exp2_tab,
+                             int32_t* cost, int items, int half, int n_bands,
+                             int n_tab, int n_sym, int n_pack, int tab_rows,
+                             int n_scale_bits, int max_mant,
+                             cudaStream_t stream);
+int pactpu_cost_table_packed_f64(const double* mixed, const int32_t* n_lines,
+                                 const uint32_t* packed,
+                                 const double* exp2_tab, int32_t* cost,
+                                 int items, int half, int n_bands, int n_tab,
+                                 int n_sym, int n_pack, int tab_rows,
+                                 int n_scale_bits, int max_mant,
+                                 cudaStream_t stream);
 
 }  // extern "C"

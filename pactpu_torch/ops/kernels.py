@@ -86,7 +86,7 @@ _MASK32 = 0xFFFFFFFF
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_double
 _SCAN_ARGS = [_P] * 7 + [_I] * 5 + [_D, _I, _D, _D, _I, _I, _P]
-_COST_ARGS = [_P] * 6 + [_I] * 7 + [_P]
+_COST_ARGS = [_P] * 5 + [_I] * 9 + [_P]
 # kernel name -> (C symbol in csrc/kernels.h, its argument types); every
 # function ends with the stream and returns cudaGetLastError()
 _C_FUNCS = {
@@ -100,7 +100,7 @@ _C_FUNCS = {
     "exact_scan": ("pactpu_exact_scan", _SCAN_ARGS),
     "closed_form": ("pactpu_closed_form", [_P] * 4 + [_I] * 3 + [_P]),
     "grant_fill": ("pactpu_grant_fill", [_P] * 4 + [_I] * 4 + [_P]),
-    "cost_table": ("pactpu_cost_table", _COST_ARGS),
+    "cost_table": ("pactpu_cost_table_packed", _COST_ARGS),
 }
 # the float64 forms, by the kernel they count under
 _C_FUNCS_F64 = {
@@ -110,7 +110,7 @@ _C_FUNCS_F64 = {
     "spread_maskers": ("pactpu_spread_f64", [_P] * 7 + [_I] * 3 + [_P]),
     "exact_scan": ("pactpu_exact_scan_f64", _SCAN_ARGS),
     "closed_form": ("pactpu_closed_form_f64", [_P] * 4 + [_I] * 3 + [_P]),
-    "cost_table": ("pactpu_cost_table_f64", _COST_ARGS),
+    "cost_table": ("pactpu_cost_table_packed_f64", _COST_ARGS),
 }
 _FLOATS = (torch.float32, torch.float64)
 
@@ -1126,7 +1126,9 @@ def grant_fill(total: torch.Tensor, level: torch.Tensor,
     total: i32[R]; level: f32[R, bands] (float32 in every precision, as
     pactpu casts it); n_lines: i32[bands]; max_steps: the walk's cap
     (bitalloc._legacy_iter_bound).  Returns bits i32[R, bands] after the
-    1-bit floor.  The kernel takes up to MAX_FILL_BANDS bands."""
+    1-bit floor.  The kernel takes up to MAX_FILL_BANDS bands; it walks
+    each row as grant_fill_jump_plain does (one jump over the grants
+    nothing can interrupt, then steps), with grant_fill_plain's result."""
     _alloc_check("level", total, level, n_lines, torch.float32)
     dev = level.device
     if _on_cpu(dev):
@@ -1184,6 +1186,138 @@ def grant_fill_plain(total, level, n_lines, max_mant_bits: int,
     return torch.where(alloc < 2, 0, torch.clamp(alloc, max=max_mant_bits))
 
 
+# K9's jump (csrc/grant_fill.cu's kProbes, held equal by
+# tests/test_torch_grant_jump.py): bisection probes after the first
+GRANT_PROBES = 8
+_SIX = np.float32(6.0)
+
+
+def _grant_argmax(lev: list, can: list) -> int:
+    """The first NaN among the grantable bands' levels, else the first of
+    the largest (the others read -inf), as grant_fill_plain's arg-max."""
+    key = [lev[b] if can[b] else -math.inf for b in range(len(lev))]
+    nan = [b for b, k in enumerate(key) if math.isnan(k)]
+    if nan:
+        return nan[0]
+    best = 0
+    for b, k in enumerate(key):
+        if k > key[best]:
+            best = b
+    return best
+
+
+def _grant_row_jump(total: int, lev: list, nl: list, max_mant_bits: int,
+                    max_steps: int, stats: dict) -> list:
+    """One row of grant_fill_jump_plain: its allocation before the floor."""
+    n = len(lev)
+    mm = max_mant_bits
+    alloc = [0] * n
+    row = dict(rem=total, grants=0, walked=0)
+
+    def payable(b):
+        return alloc[b] < mm and row["rem"] >= nl[b] and row["rem"] > 0
+
+    def keys(b):         # band b's keys from its allocation to the cap
+        out, k = [], lev[b]
+        for _ in range(alloc[b], mm):
+            out.append(k)
+            k = np.float32(k - _SIX)
+        return out
+
+    def jump():
+        pay = [b for b in range(n) if payable(b)]
+        if not pay:
+            return
+        ks = {b: keys(b) for b in pay}
+
+        def counts(level):
+            return {b: sum(1 for k in ks[b] if k > level) for b in pay}
+
+        def feasible(level):
+            c = counts(level)
+            cost = sum(c[b] * nl[b] for b in pay)
+            free = sum(c[b] for b in pay if nl[b] == 0)
+            return (sum(c.values()) <= max_steps - row["grants"] and
+                    (cost < row["rem"] or (cost == row["rem"] and not free)))
+
+        hi = max(lev[b] for b in pay)
+        lo = np.float32(min(ks[b][-1] for b in pay) - _SIX)
+        probes = 1
+        if not feasible(lo):        # hi always passes: no grant
+            for _ in range(GRANT_PROBES):
+                mid = np.float32(lo + np.float32(np.float32(hi - lo)
+                                                 * np.float32(0.5)))
+                probes += 1
+                if feasible(mid):
+                    hi = mid
+                else:
+                    lo = mid
+            lo = hi
+        c = counts(lo)
+        for b in pay:
+            for _ in range(c[b]):
+                lev[b] = np.float32(lev[b] - _SIX)
+            alloc[b] += c[b]
+            row["rem"] -= c[b] * nl[b]
+        row["grants"] += sum(c.values())
+        stats["jumped"] += sum(c.values())
+        stats["probes"] += probes
+
+    if max_steps > 0 and all(math.isfinite(x) for x in lev):
+        jump()
+    while row["grants"] < max_steps:
+        can = [payable(b) for b in range(n)]
+        if not any(can):
+            break
+        cand = _grant_argmax(lev, can)
+        if not can[cand]:
+            break                   # a fixed point: nothing changes again
+        alloc[cand] += 1
+        row["rem"] -= nl[cand]
+        lev[cand] = np.float32(lev[cand] - _SIX)
+        row["grants"] += 1
+        row["walked"] += 1
+    stats["steps"] += row["walked"]
+    stats["max_walked"] = max(stats["max_walked"], row["walked"])
+    return alloc
+
+
+def grant_fill_jump_plain(total, level, n_lines, max_mant_bits: int,
+                          max_steps: int, stats: dict = None) -> torch.Tensor:
+    """grant_fill_plain's result by K9's shorter walk, row by row: one jump
+    over the grants that nothing can interrupt, then greedy steps.
+
+    The grants follow the order of (level desc, band index asc) over every
+    band's keys lev, lev - 6, ..., each subtraction rounded in float32, up
+    to max_mant_bits keys a band, and only the budget interrupts them: a
+    band leaves once it can no longer be paid for (remaining only falls),
+    or at its cap.  So the grants of the keys above a level L, over the
+    bands that can be paid for now, happen (in some order) if together
+    their lines fit the budget, with something left or no zero-line band
+    among them (the `remaining > 0` guard before each), and their count
+    fits the steps left of max_steps.  All three are monotone in L: the
+    jump takes every key if that passes, else the lowest of GRANT_PROBES
+    bisections between the lowest key and the highest that passes (the
+    highest key always does: no grant).  A row with a NaN or an infinite
+    level takes the steps alone.  stats: adds the grants walked one at a
+    time ("steps"), the grants of the jumps ("jumped") and the jumps'
+    feasibility tests ("probes"), and keeps the most steps walked in a row
+    ("max_walked")."""
+    rows, n_bands = level.shape
+    stats = {} if stats is None else stats
+    for k in ("steps", "jumped", "probes", "max_walked"):
+        stats.setdefault(k, 0)
+    lev = level.detach().cpu().numpy().astype(np.float32) + np.float32(0.0)
+    tot = [int(t) for t in total.cpu()]
+    nl = [int(n) for n in n_lines.cpu()]
+    out = np.zeros((rows, n_bands), np.int32)
+    for r in range(rows):
+        out[r] = _grant_row_jump(tot[r], list(lev[r]), nl,
+                                 int(max_mant_bits), int(max_steps), stats)
+    out = np.where(out < 2, 0, np.minimum(out, max_mant_bits))
+    return torch.from_numpy(out.astype(np.int32)).to(level.device)
+
+
 # -- K10 cost_table ----------------------------------------------------------
 
 # allocations 0..16 of the exact mode's cost table
@@ -1214,9 +1348,55 @@ def _exp2_ks(device: torch.device, dtype: torch.dtype, largest: int,
     return q.exp2i(k, dtype).contiguous()
 
 
+# K10's packed table set (csrc/cost_table.cu): 5 bits a length, six
+# lengths a word, then the escape flags (word 1 from bit 20 up to 10 tables,
+# else word 3 from bit 0)
+_PACK_NARROW_TABLES = 10
+_PACK_FIELD_BITS = 5
+_PACK_MAX_LEN = (1 << _PACK_FIELD_BITS) - 1
+
+
+def pack_tables(tab_lens: torch.Tensor, esc_len: torch.Tensor):
+    """K10's packed table set: (packed i32[rows, W], n_pack).
+
+    n_pack is the symbols up to the last one any table codes; packed holds
+    one entry each, then one of escapes in every table, which the kernel
+    reads for every later symbol (rows: n_pack + 1, rounded up to an even
+    count for W = 2, so that the set is a whole number of 16-byte units).
+    Entry s: table t's length at word t // 6, bit 5 (t % 6), its escape
+    length where it has no code, and its escape flag at bit t of the flag
+    word (word 1 from bit 20 for W = 2, word 3 for W = 4).  Lengths and
+    escape lengths above 31 bits are refused (the codec's limit,
+    huffman_train.build_table).  One host sync (n_pack)."""
+    n_tab, n_sym = tab_lens.shape
+    if n_tab > MAX_SCAN_TABLES:
+        raise ValueError(f"pack_tables: at most {MAX_SCAN_TABLES} tables")
+    if bool(((tab_lens < 0) | (tab_lens > _PACK_MAX_LEN)).any()
+            | ((esc_len < 0) | (esc_len > _PACK_MAX_LEN)).any()):
+        raise ValueError("pack_tables: code and escape lengths must be "
+                         f"0..{_PACK_MAX_LEN} bits")
+    coded = (tab_lens > 0).any(0).nonzero()
+    n_pack = int(coded.max()) + 1 if coded.numel() else 0
+    w = 2 if n_tab <= _PACK_NARROW_TABLES else 4
+    dev = tab_lens.device
+    lens = tab_lens[:, :n_pack].long()
+    esc = esc_len.long()[:, None]
+    length = torch.cat([torch.where(lens > 0, lens, esc), esc], 1)
+    flag = torch.cat([(lens == 0).long(), torch.ones_like(esc)], 1)
+    rows = n_pack + 1
+    rows += rows % 2 if w == 2 else 0
+    words = torch.zeros((rows, w), dtype=torch.long, device=dev)
+    flag_word, flag_bit = (1, 20) if w == 2 else (3, 0)
+    for t in range(n_tab):
+        words[:n_pack + 1, t // 6] |= length[t] << (
+            _PACK_FIELD_BITS * (t % 6))
+        words[:n_pack + 1, flag_word] |= flag[t] << (flag_bit + t)
+    return words.to(torch.int32).contiguous(), n_pack
+
+
 def cost_table(mixed: torch.Tensor, lay: dict, tab_lens: torch.Tensor,
                esc_len: torch.Tensor, n_scale_bits: int,
-               max_mant_bits: int) -> torch.Tensor:
+               max_mant_bits: int, packed=None) -> torch.Tensor:
     """Huffman bits of every band at every allocation under every table
     (pactpu/codec/exact.py:cost_table_body): mixed f32[B, C, half] (or
     f64) -> i32[B, C, bands, 17, T], allocation 0 and those past
@@ -1224,7 +1404,9 @@ def cost_table(mixed: torch.Tensor, lay: dict, tab_lens: torch.Tensor,
     its n_lines, the plain version its gather tables); tab_lens i32[T, S]
     and esc_len i32[T]: the Huffman code lengths (0 = no code: the
     escape's length + the allocation) and escape lengths.  A symbol past S
-    reads the table's last entry."""
+    reads the table's last entry.  The kernel reads the table set packed:
+    packed is pack_tables(tab_lens, esc_len), made once by the owner of
+    the table set (exact.packed_tables); None packs it on this call."""
     _cost_check(mixed, lay, tab_lens, esc_len)
     dev = mixed.device
     if _on_cpu(dev):
@@ -1241,13 +1423,17 @@ def cost_table(mixed: torch.Tensor, lay: dict, tab_lens: torch.Tensor,
             f"cost_table kernel: at most {MAX_COST_LINES} lines, "
             f"{MAX_SCAN_TABLES} tables, {MAX_FILL_BANDS} bands and "
             "allocations 1..16 with allocation + largest scale <= 31")
+    packed, n_pack = packed or pack_tables(tab_lens, esc_len)
+    if (packed.device != dev or packed.dtype != torch.int32 or packed.shape[1]
+            != (2 if n_tab <= _PACK_NARROW_TABLES else 4)):
+        raise ValueError("cost_table: packed is not this table set's")
     exp2 = _exp2_ks(dev, mixed.dtype, largest, int(max_mant_bits))
     out = torch.empty((b, c, n_bands, N_ALLOCS, n_tab), dtype=torch.int32,
                       device=dev)
     if out.numel():
         _launch("cost_table", dev, _ptr(mixed), _ptr(lay["n_lines"]),
-                _ptr(tab_lens), _ptr(esc_len), _ptr(exp2), _ptr(out), b * c,
-                half, n_bands, n_tab, n_sym, int(n_scale_bits),
+                _ptr(packed), _ptr(exp2), _ptr(out), b * c, half, n_bands,
+                n_tab, n_sym, n_pack, packed.shape[0], int(n_scale_bits),
                 int(max_mant_bits), f64=mixed.dtype == torch.float64)
     return out
 

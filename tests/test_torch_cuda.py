@@ -515,6 +515,35 @@ def test_grant_fill_cases(cuda, name):
     assert torch.equal(out, K.grant_fill_plain(*args))
 
 
+@pytest.mark.parametrize("n_bands", [25, 40, 96])
+def test_grant_fill_jump_rows(cuda, n_bands):
+    """K9 on rows its jump takes (finite levels, ties on a 6 dB grid,
+    budgets from zero past every line's cap, zero-line bands), bit-equal
+    with the plain version's steps; the plain mirror of the kernel's walk
+    jumps on them."""
+    from pactpu_torch.ops import bitalloc
+    rng = np.random.default_rng(n_bands)
+    rows = 64
+    n_lines = rng.integers(1, 60, n_bands).astype(np.int32)
+    n_lines[[2, n_bands - 1]] = 0
+    lines = int(n_lines.sum())
+    level = rng.uniform(-20.0, 100.0, (rows, n_bands)).astype(np.float32)
+    level[::3] = np.round(level[::3] / 6.0) * 6.0
+    total = rng.integers(0, 17 * lines, rows).astype(np.int32)
+    total[:3] = (0, 16 * lines, lines)
+    args = (torch.from_numpy(total).to(cuda),
+            torch.from_numpy(level).to(cuda),
+            torch.from_numpy(n_lines).to(cuda), 16,
+            bitalloc._legacy_iter_bound(4 * int(total.max()), n_lines,
+                                        n_bands))
+    out = K.grant_fill(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.grant_fill_plain(*args))
+    stats = {}
+    K.grant_fill_jump_plain(*args, stats=stats)
+    assert stats["jumped"] > stats["steps"]
+
+
 @pytest.mark.parametrize("n_bands", [1, 33, 96, 200, 1024])
 def test_grant_fill_many_bands(cuda, n_bands):
     """K9 at one band, two and three slots a lane and the wide form, and
@@ -689,6 +718,53 @@ def test_cost_table_tables(cuda, n_tab, n_sym, dtype):
     out = K.cost_table(*args)
     torch.cuda.synchronize()
     assert torch.equal(out, K.cost_table_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cost_table_full_tables(cuda, dtype):
+    """K10 on a table set with a code on every symbol (chip_smoke.
+    full_tables): its packed set does not fit shared memory, and the
+    kernel reads it from device memory; loud lines reach the symbols near
+    the end of the set."""
+    from pactpu_torch.codec import engine as E
+    cfg = CodecConfig()
+    lay = E.device_tables(cfg, cuda)["lay"]
+    lens, _, esc, _ = chip_smoke.full_tables()
+    packed, n_pack = K.pack_tables(torch.from_numpy(lens),
+                                   torch.from_numpy(esc))
+    assert n_pack == lens.shape[1] and packed.numel() * 4 > 232_448
+    rng = np.random.default_rng(31)
+    x = rng.uniform(-1.0, 1.0, (6, 2, 1024)) ** 3
+    x[1, :, ::9] = 0.999
+    x[2, 0, 3] = -1.5
+    mixed = torch.from_numpy(x).to(dtype).to(cuda)
+    args = (mixed, lay, torch.from_numpy(lens).to(cuda),
+            torch.from_numpy(esc).to(cuda), 4, 16)
+    out = K.cost_table(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.cost_table_plain(*args))
+
+
+def test_cost_table_packed_once(cuda):
+    """The exact mode's cost table reads the table set its device tables
+    packed once (exact.packed_tables): the same bits as the plain version
+    and as packing on the call; a pack of another device or width is
+    refused."""
+    from pactpu_torch.codec import engine as E
+    from pactpu_torch.codec import exact
+    cfg = CodecConfig()
+    tables = E.device_tables(cfg, cuda)
+    pcm = chip_smoke.synth(24 * 1024 / chip_smoke.FS, 5)
+    args = chip_smoke.k10_args(torch, cfg, tables, pcm, 24)
+    packed = exact.packed_tables(tables)
+    assert exact.packed_tables(tables) is packed
+    out = exact.cost_table(cfg, dict(mixed=args[0]), tables)
+    assert torch.equal(out, K.cost_table_plain(*args))
+    assert torch.equal(out, K.cost_table(*args))
+    with pytest.raises(ValueError, match="table set"):
+        K.cost_table(*args, (packed[0].cpu(), packed[1]))
+    with pytest.raises(ValueError, match="table set"):
+        K.cost_table(*args, (packed[0].repeat(1, 2), packed[1]))
 
 
 def test_cost_table_refuses_on_the_card(cuda):

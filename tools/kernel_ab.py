@@ -11,8 +11,9 @@ DIR is a directory of kernel sources with this checkout's C interface
 unpacked with `git archive`.  Each is built with the package's own nvcc
 flags into pactpu_torch/_build/ab_NAME/.  The kernels (extract_codes,
 spread_maskers_up, water_fill, spread_maskers, huffman_walk, exact_scan,
-cost_table) run through the package's wrappers on chip_smoke.py's phase-1
-inputs (one 512-block chunk of its 60 s file; K7 and K10 in float32),
+cost_table, grant_fill) run through the package's wrappers on
+chip_smoke.py's phase-1 inputs (one 512-block chunk of its 60 s file; K7
+in float32, K10 in float32 and, as cost_table_f64, in float64),
 each version that has the kernel checked against the plain version first,
 then timed in the order other, this, this, other (each turn the median of 20
 calls with CUDA events, once around the wrapper's call and once of the
@@ -22,9 +23,16 @@ whether its result equals this checkout's bit for bit, the ptxas lines of
 each build, and the card's name, power limit and SM clock.  For water_fill
 it also prints each version's time a greedy step (per_step), for
 huffman_walk each version's time a decoded line (per_line), for exact_scan
-each version's time alone a greedy step of the chunk's chain.  The cost
-tables' plain version (the tensor operations kernel K10 replaced) takes
-its turns as version "plain".
+each version's time alone a greedy step of the chunk's chain, for
+grant_fill (on the chunk's SMR rows, as const_mnr takes them) the walk's
+grants and, as K9's plain mirror kernels.grant_fill_jump_plain counts them
+(the kernel reports none), the grants the jump takes, the steps walked
+(all rows and the most in a row) and the probes, each version's time alone on the peak-SPL
+rows (const_snr) and its ns a grant on rows that only walk and on rows
+the jump takes (per_grant).  The cost tables' plain version (the tensor
+operations kernel K10 replaced) takes its turns as version "plain"; a
+version whose K10 reads the table set unpacked (the earlier K10) is
+launched through cost_table_unpacked.
 
 `--prefill NAME`: version NAME's huffman_walk writes only the lines of
 active bands (the kernel before the one that writes every line), so its
@@ -44,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import subprocess
@@ -53,7 +62,35 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 CHOICES = ("extract_codes", "spread_maskers_up", "water_fill",
-           "spread_maskers", "huffman_walk", "exact_scan", "cost_table")
+           "spread_maskers", "huffman_walk", "exact_scan", "cost_table",
+           "cost_table_f64", "grant_fill")
+
+
+def cost_table_unpacked(torch, K, lib, a10):
+    """kernels.cost_table's launch for a library whose K10 reads the table
+    set as it is (the earlier K10: pactpu_cost_table(_f64) with tab_lens
+    and esc_len, before the packed set), on the same arguments."""
+    mixed, lay, lens, esc, n_scale_bits, max_mant = a10
+    b, c, half = mixed.shape
+    n_bands = lay["n_lines"].shape[0]
+    n_tab, n_sym = lens.shape
+    exp2 = K._exp2_ks(mixed.device, mixed.dtype, (1 << n_scale_bits) - 1,
+                      int(max_mant))
+    out = torch.empty((b, c, n_bands, K.N_ALLOCS, n_tab), dtype=torch.int32,
+                      device=mixed.device)
+    fn = getattr(lib, "pactpu_cost_table_f64" if mixed.dtype == torch.float64
+                 else "pactpu_cost_table")
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(mixed.device).cuda_stream
+    rc = fn(*(K._ptr(t) for t in (mixed, lay["n_lines"], lens, esc, exp2,
+                                  out)),
+            b * c, half, n_bands, n_tab, n_sym, int(n_scale_bits),
+            int(max_mant), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"cost_table (unpacked): CUDA error {rc}")
+    return out
 
 
 def per_step(torch, K, chip_smoke, libs, use) -> None:
@@ -101,6 +138,42 @@ def per_step(torch, K, chip_smoke, libs, use) -> None:
                               f"device_ms_{hi}_steps": ms[hi],
                               "ns_per_step": (ms[hi] - ms[lo]) / (hi - lo)
                               * 1e6}))
+
+
+def per_grant(torch, K, chip_smoke, libs, use, a9) -> None:
+    """K9 on the chunk's SMR rows (const_mnr) and peak-SPL rows
+    (const_snr), each version's time alone beside the grants of the walk,
+    the grants the jump takes and the steps walked one at a time (the
+    plain mirror's counts: "mirror_*"), and its
+    ns a step: rows that only walk (a NaN level in each: no jump, 400
+    grants a row) and the same finite rows (the jump takes them), each
+    against the same rows with a zero budget (chip_smoke.k9_step_rows)."""
+    walk = {}
+    for what, args in a9.items():
+        grants, jump = {}, {}
+        K.grant_fill_plain(*args, stats=grants)
+        K.grant_fill_jump_plain(*args, stats=jump)
+        walk[what] = dict(grants=grants["steps"],
+                          grants_max_row=grants["max_steps"],
+                          mirror_walked=jump["steps"],
+                          mirror_walked_max_row=jump["max_walked"],
+                          mirror_jumped=jump["jumped"],
+                          mirror_probes=jump["probes"],
+                          rows=args[1].shape[0])
+    print(json.dumps({"kernel": "grant_fill", "walk": walk}))
+    steps = chip_smoke.k9_step_rows(torch, a9["mnr"][2], 1024)
+    for name in libs:
+        if not hasattr(libs[name], K._C_FUNCS["grant_fill"][0]):
+            continue
+        use(name)
+        line = {"kernel": "grant_fill", "version": name,
+                "device_ms_snr": chip_smoke.device_ms(
+                    torch, lambda: K.grant_fill(*a9["snr"]))}
+        for form, (many, none, grants) in steps.items():
+            ms = [chip_smoke.device_ms(torch, lambda: K.grant_fill(*a))
+                  for a in (many, none)]
+            line[f"ns_per_{form}_grant"] = (ms[0] - ms[1]) / grants * 1e6
+        print(json.dumps(line))
 
 
 def walk_prefilled(torch, K, words, lut, n_lines, n_scale_bits,
@@ -223,14 +296,20 @@ def main() -> int:
         return K.huffman_walk(*walk_args)
 
     plain_args = {}              # the plain versions' extra arguments
-    if "exact_scan" in args.kernels or "cost_table" in args.kernels:
+    if {"exact_scan", "cost_table", "cost_table_f64"} & set(args.kernels):
         tables = device_tables(eng.cfg, "cuda")
         a7 = chip_smoke.k7_args(torch, eng.cfg, tables, pcm, 512)
         a10 = chip_smoke.k10_args(torch, eng.cfg, tables, pcm, 512)
+        a10d = chip_smoke.k10_args(torch, eng.cfg, device_tables(
+            eng.cfg, "cuda", "f64"), pcm, 512)
+        # the table set packed once, as the exact mode keeps it
+        p10 = K.pack_tables(a10[2], a10[3])
         steps = dict(steps=0, fills=0)
         # the greedy steps of the chain (the plain version without K7's
         # jump), the work a step's time is counted against
         plain_args["exact_scan"] = dict(stats=steps, jump=False)
+    if "grant_fill" in args.kernels:
+        a9 = chip_smoke.k9_args(torch, device_tables(eng.cfg, "cuda"), pcm)
     calls = {
         "extract_codes": (lambda: K.extract_codes(*chunk["k1"]),
                           lambda: K.extract_codes_plain(*chunk["k1"])),
@@ -245,12 +324,16 @@ def main() -> int:
                          lambda: K.huffman_walk_plain(*chunk["k5"])),
         "exact_scan": (lambda: K.exact_scan(*a7),
                        lambda **kw: K.exact_scan_plain(*a7, **kw)),
-        "cost_table": (lambda: K.cost_table(*a10),
+        "cost_table": (lambda: K.cost_table(*a10, p10),
                        lambda: K.cost_table_plain(*a10)),
+        "cost_table_f64": (lambda: K.cost_table(*a10d, p10),
+                           lambda: K.cost_table_plain(*a10d)),
+        "grant_fill": (lambda: K.grant_fill(*a9["mnr"]),
+                       lambda: K.grant_fill_plain(*a9["mnr"])),
     }
     # bit for bit, else K4_RTOL
     exact = ("extract_codes", "water_fill", "huffman_walk", "exact_scan",
-             "cost_table")
+             "cost_table", "cost_table_f64", "grant_fill")
 
     def use(name):
         K._lib = libs.get(name, libs["this"])
@@ -263,11 +346,21 @@ def main() -> int:
             # the versions whose library has the kernel; the cost tables'
             # plain version (the tensor operations K10 replaced) takes a
             # turn as "plain"
-            symbol = K._C_FUNCS[kernel][0]
+            f64 = kernel.endswith("_f64")
+            symbol = (K._C_FUNCS_F64 if f64 else K._C_FUNCS)[
+                kernel.removesuffix("_f64")][0]
             names = [n for n, lib in libs.items() if hasattr(lib, symbol)]
-            if kernel == "cost_table":
+            run = {n: fn for n in names}
+            if kernel.startswith("cost_table"):
+                old = "pactpu_cost_table" + ("_f64" if f64 else "")
+                for n, lib in libs.items():     # K10 before the packed set
+                    if n not in run and hasattr(lib, old):
+                        names.append(n)
+                        run[n] = functools.partial(
+                            cost_table_unpacked, torch, K, lib,
+                            a10d if f64 else a10)
                 names.append("plain")
-            run = {n: plain_fn if n == "plain" else fn for n in names}
+                run["plain"] = plain_fn
             times = {name: [] for name in names}
             device = {name: [] for name in names}
             same, mine = {}, None    # bit for bit this checkout's result?
@@ -313,6 +406,8 @@ def main() -> int:
             per_step(torch, K, chip_smoke, libs, use)
         if "huffman_walk" in args.kernels:
             per_line(torch, K, chip_smoke, libs, use, walk, chunk["k5"])
+        if "grant_fill" in args.kernels:
+            per_grant(torch, K, chip_smoke, libs, use, a9)
     finally:
         use("this")
     print(json.dumps({"sm_clock_mhz": chip_smoke.sm_clock_mhz()}))
