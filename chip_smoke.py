@@ -103,9 +103,11 @@ K4 and K6 in float64, K5 on a 96-band stream, K10 and K7 on a real
 set, on a set with a code on every symbol that it reads from device
 memory, on 96 bands and with 6 size bits; K7 also on a padded tail, mono,
 40 and 96 bands), and K8 (both types) and K9 on the rows of that chunk and
-on the edge inputs of k8_edge / k9_edge to their plain versions, with K9's
-walk (the grants its jump takes, the steps it walks, its probes) and its
-ns a walked step apart from the jump.
+on the edge inputs of k8_edge / k9_edge to their plain versions (K8 also
+on k8_nonfinite and 203 bands), with K8's ns a trip, its time on rows
+that take no trip and the launch floor, and K9's walk (the grants its
+jump takes, the steps it walks, its probes) and its ns a walked step apart
+from the jump.
 
 Then a JSON line with each kernel's launches (on its path, and on every
 path and mode measured), error and times, the nvidia-smi line, and last
@@ -513,7 +515,11 @@ def k6_edge(name: str):
 
 
 K8_EDGES = ("zero-budget", "negative-budget", "everything", "ties",
-            "zero-lines", "grid", "40-bands")
+            "zero-lines", "grid", "40-bands", "exact-hit", "last-band",
+            "signed-zero", "96-bands")
+# checked kernel against plain version only: pactpu's init casts a NaN r
+# to int32, which is not defined
+K8_NONFINITE = ("nan", "inf", "nan-inf")
 K9_EDGES = ("zero-budget", "negative-budget", "everything", "ties",
             "zero-lines", "nan", "inf", "stall", "40-bands")
 
@@ -564,10 +570,182 @@ def k8_edge(name: str):
     budgets at, just below and past 16 bits on every line, SMRs on a
     6 dB grid (ties across lanes and, after the +6 dB steps, across trips),
     zero-line bands, SMRs on a 1/8-dB grid (every product and sum exact),
-    and 40 bands (two a lane) with ties across a lane's slots and across
-    lanes."""
+    40 bands (two a lane) with ties across a lane's slots and across
+    lanes, and the take-back's own edges: a trip that lands spent on the
+    budget (so that `spent >= budget` takes one more), the trip that
+    retires the last live band bringing spent under the budget, -0.0 and
+    +0.0 SMRs tied across lanes, and 96 bands (four slots a lane) tied
+    across a lane's slots."""
+    if name in ("exact-hit", "last-band", "signed-zero", "96-bands"):
+        return _k8_takeback_rows(name, 400 + K8_EDGES.index(name))
     budget, smr, n_lines = _alloc_rows(name, 400 + K8_EDGES.index(name))
     return budget, smr, n_lines, 16
+
+
+def _k8_takeback_rows(name: str, seed: int):
+    """k8_edge's inputs for the take-back's edges, nine rows each.
+
+    "exact-hit": 24 bands tied at 60 dB and one far below (-3,000 dB, 30
+    lines), so that the init caps the 24 at 16 bits and gives the low band
+    none; the low band's trip retires it, then the tied bands give back a
+    bit each in band order.  Row k's budget is what is left after k
+    give-backs: spent lands on it exactly, and one more trip follows.
+    "last-band": one band high (16 bits, or fewer where its SMR is lower),
+    the rest far below (no bits: each retires on its trip); the high band
+    gives back to 2 bits, then to 0 on the trip that retires it, the last
+    live band, with a budget of 1 to 2 x its lines, so that this trip is
+    also the one that brings spent under the budget.
+    "signed-zero": random SMRs with -0.0 and +0.0 on bands of both orders
+    of sign, a band far below to push spent past the budget, so that the
+    zero bands are taken back while tied.
+    "96-bands": random SMRs on a 6 dB grid, slots 1-2 of each lane tied
+    with slot 0 in some rows, and low bands pushing spent past the
+    budget."""
+    rng = np.random.default_rng(seed)
+    rows = 9
+    if name == "exact-hit":
+        n_lines = rng.integers(1, 60, 25).astype(np.int32)
+        n_lines[[24, 0, 13]] = 30                  # the low band's places
+        smr = np.full((rows, 25), 60.0, np.float32)
+        budget = np.zeros(rows, np.int32)
+        for k in range(rows):
+            low = (24, 0, 13)[k % 3]
+            smr[k, low] = -3000.0
+            tied = [b for b in range(25) if b != low]
+            # 16 bits on every tied band's lines, less k give-backs
+            budget[k] = 16 * int(n_lines[tied].sum()) - int(
+                n_lines[tied[:k]].sum())
+        return budget, smr, n_lines, 16
+    if name == "last-band":
+        n_lines = rng.integers(1, 60, 25).astype(np.int32)
+        smr = np.full((rows, 25), -400.0, np.float32)
+        budget = np.zeros(rows, np.int32)
+        for k, (hi, level) in enumerate(((0, 200.0), (24, 200.0),
+                                         (13, 200.0), (6, 60.0),
+                                         (7, 200.0), (20, 120.0),
+                                         (3, 200.0), (16, 200.0),
+                                         (9, 90.0))):
+            smr[k, hi] = level
+            smr[k] += rng.uniform(0.0, 1.0, 25).astype(np.float32)
+            # 1 to 2 x its lines: over at 2 bits, under at 0
+            budget[k] = (1, 2 * int(n_lines[hi]), int(n_lines[hi]) + 1)[k % 3]
+        return budget, smr, n_lines, 16
+    if name == "signed-zero":
+        n_lines = rng.integers(1, 60, 25).astype(np.int32)
+        smr = rng.uniform(-20, 60, (rows, 25)).astype(np.float32)
+        smr[:, 5] = -300.0
+        n_lines[5] = 50
+        smr[:, [2, 11, 17, 22]] = 0.0
+        smr[::2, [11, 22]] = -0.0                  # -0.0 behind +0.0
+        smr[1::2, [2, 17]] = -0.0                  # -0.0 ahead of +0.0
+        smr[4] = np.where(smr[4] > 0, smr[4], -0.0)
+        smr[4, 5] = -300.0
+        budget = rng.integers(200, 3000, rows).astype(np.int32)
+        return budget, smr, n_lines, 16
+    # 96 bands
+    n_lines = rng.integers(1, 40, 96).astype(np.int32)
+    smr = (rng.integers(-4, 10, (rows, 96)) * 6.0).astype(np.float32)
+    smr[::2, 32:64] = smr[::2, :32]                # slot 1 ties slot 0
+    smr[::3, 64:] = smr[::3, :32]                  # slot 2 too
+    smr[:, [7, 40, 71, 95]] = -400.0
+    budget = rng.integers(0, 9000, rows).astype(np.int32)
+    return budget, smr, n_lines, 16
+
+
+def k8_nonfinite(name: str):
+    """K8's non-finite inputs (K8_NONFINITE), as k8_edge returns them:
+    NaN SMRs of both signs (the arg-min takes the first NaN), +inf and
+    -inf SMRs (a live +inf band ties a retired one), and both in one row;
+    every third budget zero, so that such rows take trips.  A NaN, or +inf
+    beside -inf, makes the row's mean NaN and every r NaN (no bits); -inf
+    alone makes every finite band's r +inf (capped), so those rows give
+    bits back."""
+    budget, smr, n_lines = _alloc_rows(name, 450 + K8_NONFINITE.index(name))
+    if name in ("nan", "nan-inf"):
+        smr[::2, 3] = np.nan
+        smr[1, 20:] = np.nan
+        smr[3, 7] = -np.nan
+        smr[5] = np.nan
+        n_lines[3] = 0
+    if name in ("inf", "nan-inf"):
+        smr[0, 4] = np.inf
+        smr[2] = -np.inf
+        smr[4, ::3] = -np.inf
+        smr[6, 1] = np.inf
+        smr[6, 24] = -np.inf
+        smr[7, 9:] = np.inf
+    budget[::3] = 0
+    return budget, smr, n_lines, 16
+
+
+def k3_args(torch, dev) -> list:
+    """K3 pack_words' inputs of phase 1: 1,024 rows of 1,148 random parts
+    at sorted word indices (a few out of range at both ends) for n_words
+    968 and 256, as [(p0, p1, w0, n_words), ...]; phase 1 times the last."""
+    rng = np.random.default_rng(1)
+    out = []
+    for n_words in (968, 256):
+        p0, p1 = (torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (1024, 1148), dtype=np.int64).astype(
+                np.int32)).to(dev) for _ in range(2))
+        w0 = torch.from_numpy(np.sort(rng.integers(
+            -2, n_words + 2, (1024, 1148)), axis=1).astype(np.int32))
+        out.append((p0, p1, w0.to(dev), n_words))
+    return out
+
+
+def k8_args(torch, dev_tables, pcm: np.ndarray, blocks: int = 512):
+    """K8 closed_form's arguments on the rows of one chunk of pcm (both
+    channels, the flat per-channel budget), in dev_tables' precision."""
+    from pactpu_torch import CodecConfig
+    from pactpu_torch.codec import engine as E
+    cfg = CodecConfig()
+    dev = dev_tables["win"].device
+    a = E.analyze(cfg, chunk_frames(torch, pcm, blocks, dev), dev_tables)
+    total = torch.full((2 * blocks,), int(cfg.bit_budget()),
+                       dtype=torch.int32, device=dev)
+    return (total, a["smr"].reshape(2 * blocks, -1).contiguous(),
+            dev_tables["lay"]["n_lines"], 16)
+
+
+def k8_step_rows(torch, n_lines, rows: int, dtype=None):
+    """Inputs that time a K8 trip, free of the launch and of the init:
+    SMRs of 300 dB (plus up to 1 dB) on every band but the last (0 dB), so
+    that the init caps every other band at 16 bits, far past a budget of
+    1,300 bits (347 trips a row at 25 bands), against a budget past 16
+    bits on every line (no trip: the launch, one row's init and the
+    store).  Returns (many, none), argument tuples of kernels.closed_form,
+    in float32 or `dtype`."""
+    dev = n_lines.device
+    gen = torch.Generator().manual_seed(8)
+    smr = 300.0 + torch.rand(rows, n_lines.shape[0], generator=gen)
+    smr[:, -1] = 0.0
+    smr = smr.to(dev, dtype or torch.float32).contiguous()
+    lines = int(n_lines.sum())
+    many = torch.full((rows,), 1300, dtype=torch.int32, device=dev)
+    none = torch.full((rows,), 16 * lines + 1, dtype=torch.int32,
+                      device=dev)
+    return (many, smr, n_lines, 16), (none, smr, n_lines, 16)
+
+
+def k8_wide(name: str = "203-bands"):
+    """K8's wide form (past 128 bands) with a tail past its whole octets:
+    203 bands, nine rows, budgets from below zero to past 16 bits on every
+    line, in k8_edge's form."""
+    rng = np.random.default_rng(470)
+    n_lines = rng.integers(0, 30, 203).astype(np.int32)
+    lines = int(n_lines.sum())
+    budget = rng.integers(-lines, 17 * lines, 9).astype(np.int32)
+    smr = rng.uniform(-30, 90, (9, 203)).astype(np.float32)
+    return budget, smr, n_lines, 16
+
+
+def launch_floor_ms(torch) -> float:
+    """The card's time alone for the least launch, as device_ms times a
+    kernel: a one-element fill_ (a PyTorch yardstick the port never
+    calls)."""
+    one = torch.empty(1, device="cuda")
+    return device_ms(torch, lambda: one.fill_(1.0))
 
 
 def k9_edge(name: str):
@@ -901,7 +1079,6 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
     from pactpu_torch.ops import psycho
     dev = torch.device("cuda")
     blocks = 512
-    rng = np.random.default_rng(1)
     res, extra = {}, {}      # extra: beside the times, on the 1-kernel line
     lay = dev_tables["lay"]
     n_lines = lay["n_lines"].cpu().numpy()
@@ -1011,16 +1188,8 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
         chain_steps_max=int(pbits.sum(1).max()) + pbits.shape[1])
 
     # K3: 1024 rows x 1148 items at n_words 256 and 968 (time at 256)
-    items = 1148
     err3 = 0.0
-    for n_words in (968, 256):
-        p0 = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (1024, items),
-                                           dtype=np.int64).astype(np.int32))
-        p1 = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (1024, items),
-                                           dtype=np.int64).astype(np.int32))
-        w0 = torch.from_numpy(np.sort(rng.integers(
-            -2, n_words + 2, (1024, items)), axis=1).astype(np.int32))
-        p0, p1, w0 = p0.to(dev), p1.to(dev), w0.to(dev)
+    for p0, p1, w0, n_words in k3_args(torch, dev):
         out = K.pack_words(p0, p1, w0, n_words)
         check(torch.equal(out, K.pack_words_plain(p0, p1, w0, n_words)),
               f"K3 differs from its plain version at n_words {n_words}")
@@ -1183,8 +1352,10 @@ def phase1_alloc(torch, dev_tables, pcm: np.ndarray, record, res: dict,
     a real 512-block chunk (both channels, the flat per-channel budget;
     K8 also in float64 on the chunk's float64 analysis, K9 on its SMRs as
     const_mnr takes them and on its peak SPLs as const_snr does) and on
-    every k8_edge / k9_edge input; their times, steps a row and ns a step
-    (the kernel's time alone over its longest row's chain); K9's walk:
+    every k8_edge / k9_edge input, K8 also on every k8_nonfinite input and
+    past 128 bands (k8_wide); their times, steps a row and ns a step
+    (the kernel's time alone over its longest row's chain), K8's time on
+    rows that take no trip and the launch floor beside it; K9's walk:
     the grants its jump takes, the steps it walks one at a time and its
     probes (kernels.grant_fill_jump_plain), and its ns a walked step and a
     grant with the jump (k9_step_rows)."""
@@ -1194,7 +1365,6 @@ def phase1_alloc(torch, dev_tables, pcm: np.ndarray, record, res: dict,
     from pactpu_torch.ops import kernels as K
     dev = torch.device("cuda")
     cfg = CodecConfig()
-    frames = chunk_frames(torch, pcm, blocks, dev)
     nl = dev_tables["lay"]["n_lines"]
     budget = int(cfg.bit_budget())
     total = torch.full((2 * blocks,), budget, dtype=torch.int32, device=dev)
@@ -1211,9 +1381,8 @@ def phase1_alloc(torch, dev_tables, pcm: np.ndarray, record, res: dict,
     for prec in ("f32", "f64"):
         tables = dev_tables if prec == "f32" else E.device_tables(
             cfg, "cuda", "f64")
-        a = E.analyze(cfg, frames, tables)
-        smr = a["smr"].reshape(2 * blocks, -1).contiguous()
-        args = (total, smr, nl, 16)
+        args = k8_args(torch, tables, pcm, blocks)
+        smr = args[1]
         got = K.closed_form(*args)
         want, stats = steps_of(K.closed_form_plain, *args)
         check(torch.equal(got, want),
@@ -1240,8 +1409,10 @@ def phase1_alloc(torch, dev_tables, pcm: np.ndarray, record, res: dict,
                  steps_per_row=stats["steps"] / smr.shape[0],
                  ns_per_step=r["device_ms"] * 1e6 / max(stats["max_steps"],
                                                         1))
-    for name in K8_EDGES:
-        e = [up(x) if isinstance(x, np.ndarray) else x for x in k8_edge(name)]
+    for name, make in ([(n, k8_edge) for n in K8_EDGES]
+                       + [(n, k8_nonfinite) for n in K8_NONFINITE]
+                       + [("203-bands", k8_wide)]):
+        e = [up(x) if isinstance(x, np.ndarray) else x for x in make(name)]
         for dt in (torch.float32, torch.float64):
             e[1] = e[1].to(dt)
             check(torch.equal(K.closed_form(*e), K.closed_form_plain(*e)),
@@ -1294,23 +1465,21 @@ def phase1_alloc(torch, dev_tables, pcm: np.ndarray, record, res: dict,
     # the time on the same rows taking none.  K8: SMRs 300 dB on every band
     # but the last (0 dB), so that the init caps 24 bands at 16 bits, far
     # past a budget of 1,300 bits, against a budget past 16 bits on every
-    # line; K9: levels near 200 dB and a budget past 16 bits on every line
-    # (400 grants a row) against a zero budget
-    lines = int(nl.sum())
+    # line (its time alone is kept too: the launch, one row's init and the
+    # store, beside the launch floor); K9: levels near 200 dB and a budget
+    # past 16 bits on every line (400 grants a row) against a zero budget
     rows = 2 * blocks
-    smr = torch.full((rows, cfg.n_bands), 300.0, device=dev)
-    smr[:, -1] = 0.0
-    smr += torch.rand(rows, cfg.n_bands, device=dev)
-    many = torch.full((rows,), 1300, dtype=torch.int32, device=dev)
-    none = torch.full((rows,), 16 * lines + 1, dtype=torch.int32, device=dev)
-    _, stats = steps_of(K.closed_form_plain, many, smr, nl, 16)
-    _, zero = steps_of(K.closed_form_plain, none, smr, nl, 16)
+    many, none = k8_step_rows(torch, nl, rows)
+    _, stats = steps_of(K.closed_form_plain, *many)
+    _, zero = steps_of(K.closed_form_plain, *none)
     check(zero["max_steps"] == 0 and stats["max_steps"] > 100,
           "K8's step timing input takes other trips than planned")
-    step = (device_ms(torch, lambda: K.closed_form(many, smr, nl, 16))
-            - device_ms(torch, lambda: K.closed_form(none, smr, nl, 16)))
+    zero_ms = device_ms(torch, lambda: K.closed_form(*none))
+    step = device_ms(torch, lambda: K.closed_form(*many)) - zero_ms
     extra["closed_form"].update(step_input_trips=stats["max_steps"],
-                                step_ns=step * 1e6 / stats["max_steps"])
+                                step_ns=step * 1e6 / stats["max_steps"],
+                                zero_trip_device_ms=zero_ms,
+                                launch_floor_ms=launch_floor_ms(torch))
     # K9: a walked step on rows that cannot jump (a NaN level), and a grant
     # with the jump on the same finite rows ("ns a grant, jumps included")
     for form, (many, none, grants) in k9_step_rows(torch, nl, rows).items():

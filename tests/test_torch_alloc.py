@@ -151,6 +151,64 @@ def test_closed_form_edges(name, prec):
         port_closed_form(budget, smr, n_lines, max_mant), gold)
 
 
+def _takeback_trips(budget, smr, n_lines, max_mant):
+    """The take-back of each row, trip by trip, as pactpu's loop runs it
+    (bitalloc.py:183-243, stopping where spent < budget): per row a list
+    of (candidate, its SMR before the trip, spent after the trip, live
+    bands left), and the final bits."""
+    bits0, _ = tb.closed_form_init(torch.from_numpy(budget), max_mant,
+                                   n_lines, torch.from_numpy(smr))
+    rows, out = [], []
+    for i, bits in enumerate(bits0.numpy().astype(np.int64)):
+        m, live = smr[i].copy(), np.ones(len(bits), bool)
+        spent, trips = int((bits * n_lines).sum()), []
+        while live.any() and spent >= budget[i]:
+            key = np.where(live, m, np.inf)
+            nan = np.isnan(key)
+            c = int(np.argmax(nan) if nan.any() else np.argmin(key))
+            dec = bits[c] - 1 if bits[c] > 2 else 0
+            spent -= int((bits[c] - dec) * n_lines[c])
+            bits[c], live[c] = dec, dec != 0
+            trips.append((c, m[c], spent, int(live.sum())))
+            m[c] += 6.0
+        rows.append(trips)
+        out.append(bits)
+    return rows, np.stack(out)
+
+
+@pytest.mark.parametrize("name", ["exact-hit", "last-band", "signed-zero",
+                                  "96-bands"])
+def test_closed_form_edges_reach_their_cases(name):
+    """The take-back's edge inputs take the trips they are named for:
+    spent lands on the budget and one more trip follows; the trip that
+    retires the last live band brings spent under the budget; candidates
+    of SMR -0.0 and +0.0 tied in both orders of sign; 96 bands with a
+    candidate tied with a band of the same lane in another slot."""
+    budget, smr, n_lines, max_mant = chip_smoke.k8_edge(name)
+    rows, bits = _takeback_trips(budget, smr, n_lines, max_mant)
+    np.testing.assert_array_equal(bits, tb.alloc_closed_form(
+        torch.from_numpy(budget), max_mant, n_lines,
+        torch.from_numpy(smr)).numpy())
+    if name == "exact-hit":
+        for trips, bud in zip(rows, budget):
+            assert any(t[2] == bud for t in trips[:-1])
+            assert trips[-1][2] < bud
+    elif name == "last-band":
+        for trips, bud in zip(rows, budget):
+            assert trips[-1][3] == 0 and trips[-1][2] < bud <= trips[-2][2]
+    elif name == "signed-zero":
+        orders = set()
+        for i, trips in enumerate(rows):
+            for (c, v, _, _), (c2, v2, _, _) in zip(trips, trips[1:]):
+                if v == 0.0 and v2 == 0.0:
+                    orders.add((np.signbit(smr[i, c]),
+                                np.signbit(smr[i, c2])))
+        assert {(True, False), (False, True)} <= orders
+    else:
+        assert any(c2 - c in (32, 64) and v == v2 for trips in rows
+                   for (c, v, _, _), (c2, v2, _, _) in zip(trips, trips[1:]))
+
+
 def test_closed_form_takeback_alone():
     """closed_form_takeback from any bits0 (here the init's, and a row
     over its budget at the cap) equals pactpu's."""

@@ -242,6 +242,8 @@ def test_edge_inputs_are_seeded():
                         (chip_smoke.k2_edge, chip_smoke.K2_EDGES),
                         (chip_smoke.k6_edge, chip_smoke.K6_EDGES),
                         (chip_smoke.k8_edge, chip_smoke.K8_EDGES),
+                        (chip_smoke.k8_nonfinite, chip_smoke.K8_NONFINITE),
+                        (chip_smoke.k8_wide, ("203-bands",)),
                         (chip_smoke.k9_edge, chip_smoke.K9_EDGES)):
         for name in names:
             for a, b in zip(make(name), make(name)):

@@ -479,11 +479,27 @@ def test_closed_form_cases(cuda, name, dtype):
     assert torch.equal(out, K.closed_form_plain(*args))
 
 
-@pytest.mark.parametrize("n_bands", [1, 33, 96, 200, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", chip_smoke.K8_NONFINITE)
+def test_closed_form_nonfinite(cuda, name, dtype):
+    """K8 on chip_smoke.k8_nonfinite's NaN and infinite SMRs, in both
+    types, bit-equal with its plain version (the NaN-lowest key, a live
+    +inf band tied with a retired one)."""
+    budget, smr, n_lines, max_mant = chip_smoke.k8_nonfinite(name)
+    args = (torch.from_numpy(budget).to(cuda),
+            torch.from_numpy(smr).to(cuda, dtype),
+            torch.from_numpy(n_lines).to(cuda), max_mant)
+    out = K.closed_form(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.closed_form_plain(*args))
+
+
+@pytest.mark.parametrize("n_bands", [1, 33, 96, 200, 203, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_closed_form_many_bands(cuda, n_bands, dtype):
-    """K8 at one band, two and three slots a lane, and the wide form, on
-    ragged row counts, with budgets from below zero to past the cap."""
+    """K8 at one band, two and three slots a lane, and the wide form (203
+    bands: with a tail past the whole octets), on ragged row counts, with
+    budgets from below zero to past the cap."""
     rng = np.random.default_rng(n_bands)
     rows = 37
     n_lines = rng.integers(0, 30, n_bands).astype(np.int32)
@@ -544,7 +560,22 @@ def test_grant_fill_jump_rows(cuda, n_bands):
     assert stats["jumped"] > stats["steps"]
 
 
-@pytest.mark.parametrize("n_bands", [1, 33, 96, 200, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", chip_smoke.K8_NONFINITE)
+def test_closed_form_nonfinite(cuda, name, dtype):
+    """K8 on chip_smoke.k8_nonfinite's NaN and infinite SMRs, in both
+    types, bit-equal with its plain version (the NaN-lowest key, a live
+    +inf band tied with a retired one)."""
+    budget, smr, n_lines, max_mant = chip_smoke.k8_nonfinite(name)
+    args = (torch.from_numpy(budget).to(cuda),
+            torch.from_numpy(smr).to(cuda, dtype),
+            torch.from_numpy(n_lines).to(cuda), max_mant)
+    out = K.closed_form(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.closed_form_plain(*args))
+
+
+@pytest.mark.parametrize("n_bands", [1, 33, 96, 200, 203, 1024])
 def test_grant_fill_many_bands(cuda, n_bands):
     """K9 at one band, two and three slots a lane and the wide form, and
     with a step cap that stops every row early."""

@@ -11,9 +11,10 @@ DIR is a directory of kernel sources with this checkout's C interface
 unpacked with `git archive`.  Each is built with the package's own nvcc
 flags into pactpu_torch/_build/ab_NAME/.  The kernels (extract_codes,
 spread_maskers_up, water_fill, spread_maskers, huffman_walk, exact_scan,
-cost_table, grant_fill) run through the package's wrappers on
-chip_smoke.py's phase-1 inputs (one 512-block chunk of its 60 s file; K7
-in float32, K10 in float32 and, as cost_table_f64, in float64),
+cost_table, grant_fill, closed_form, pack_words) run through the
+package's wrappers on chip_smoke.py's phase-1 inputs (one 512-block chunk
+of its 60 s file; K7 in float32, K10 and K8 in float32 and, as
+cost_table_f64 and closed_form_f64, in float64),
 each version that has the kernel checked against the plain version first,
 then timed in the order other, this, this, other (each turn the median of 20
 calls with CUDA events, once around the wrapper's call and once of the
@@ -29,7 +30,12 @@ grants and, as K9's plain mirror kernels.grant_fill_jump_plain counts them
 (the kernel reports none), the grants the jump takes, the steps walked
 (all rows and the most in a row) and the probes, each version's time alone on the peak-SPL
 rows (const_snr) and its ns a grant on rows that only walk and on rows
-the jump takes (per_grant).  The cost tables' plain version (the tensor
+the jump takes (per_grant), and for closed_form (K8, on the chunk's
+rows: both channels at the flat budget; closed_form_f64 on its float64
+analysis) the chunk's trips and each version's ns a trip and time on rows
+that take no trip, in both types, beside the launch floor (per_trip);
+pack_words (K3) runs on phase 1's 1,024 rows of 1,148 parts and prints
+its byte bound.  The cost tables' plain version (the tensor
 operations kernel K10 replaced) takes its turns as version "plain"; a
 version whose K10 reads the table set unpacked (the earlier K10) is
 launched through cost_table_unpacked.
@@ -63,7 +69,8 @@ sys.path.insert(0, ROOT)
 
 CHOICES = ("extract_codes", "spread_maskers_up", "water_fill",
            "spread_maskers", "huffman_walk", "exact_scan", "cost_table",
-           "cost_table_f64", "grant_fill")
+           "cost_table_f64", "grant_fill", "closed_form", "closed_form_f64",
+           "pack_words")
 
 
 def cost_table_unpacked(torch, K, lib, a10):
@@ -173,6 +180,51 @@ def per_grant(torch, K, chip_smoke, libs, use, a9) -> None:
             ms = [chip_smoke.device_ms(torch, lambda: K.grant_fill(*a))
                   for a in (many, none)]
             line[f"ns_per_{form}_grant"] = (ms[0] - ms[1]) / grants * 1e6
+        print(json.dumps(line))
+
+
+def per_trip(torch, K, chip_smoke, libs, use, a8, rounds: int) -> None:
+    """K8's trips: those of the chunk's rows (the plain version's count,
+    all rows and the longest row), and each version's time alone on rows
+    that take 346 trips and on the same rows taking none
+    (chip_smoke.k8_step_rows), in float32 and float64, in turns other,
+    this, this, other: ns a trip is the difference over the trips, and
+    the rows taking none are the launch, one row's init and the store.
+    Beside them, the launch floor (chip_smoke.launch_floor_ms)."""
+    stats = {}
+    K.closed_form_plain(*a8, stats=stats)
+    nl = a8[2]
+    forms = {"f32": chip_smoke.k8_step_rows(torch, nl, 1024),
+             "f64": chip_smoke.k8_step_rows(torch, nl, 1024, torch.float64)}
+    trips = {}
+    for form, (many, _) in forms.items():
+        st = {}
+        K.closed_form_plain(*many, stats=st)
+        trips[form] = st["max_steps"]
+    print(json.dumps({"kernel": "closed_form", "chunk_trips": stats["steps"],
+                      "chunk_trips_max_row": stats["max_steps"],
+                      "rows": a8[1].shape[0], "step_input_trips": trips}))
+    symbol = K._C_FUNCS["closed_form"][0]
+    names = [n for n in libs if hasattr(libs[n], symbol)]
+    others = [n for n in names if n != "this"]
+    got = {n: {f: dict(many=[], none=[]) for f in forms} for n in names}
+    floor = []
+    for _ in range(rounds):
+        for name in others + ["this", "this"] + others[::-1]:
+            use(name)
+            for form, (many, none) in forms.items():
+                for what, a in (("many", many), ("none", none)):
+                    got[name][form][what].append(chip_smoke.device_ms(
+                        torch, lambda: K.closed_form(*a)))
+        floor.append(chip_smoke.launch_floor_ms(torch))
+    for name in names:
+        line = {"kernel": "closed_form", "version": name,
+                "launch_floor_ms_by_round": floor}
+        for form, t in got[name].items():
+            line[form] = dict(
+                device_ms_many=t["many"], zero_trip_device_ms=t["none"],
+                ns_per_trip=[(a - b) * 1e6 / trips[form]
+                             for a, b in zip(t["many"], t["none"])])
         print(json.dumps(line))
 
 
@@ -310,6 +362,17 @@ def main() -> int:
         plain_args["exact_scan"] = dict(stats=steps, jump=False)
     if "grant_fill" in args.kernels:
         a9 = chip_smoke.k9_args(torch, device_tables(eng.cfg, "cuda"), pcm)
+    if {"closed_form", "closed_form_f64"} & set(args.kernels):
+        a8 = chip_smoke.k8_args(torch, device_tables(eng.cfg, "cuda"), pcm)
+        a8d = chip_smoke.k8_args(torch, device_tables(eng.cfg, "cuda", "f64"),
+                                 pcm)
+    if "pack_words" in args.kernels:
+        a3 = chip_smoke.k3_args(torch, torch.device("cuda"))[-1]
+        out3 = K.pack_words(*a3)
+        # bytes once (parts, word indices, words) over the card's rate
+        print(json.dumps({"kernel": "pack_words", "bound_ms":
+                          chip_smoke.nbytes(*a3[:3], out3)
+                          / chip_smoke.PEAK_BYTES_PER_S * 1e3}))
     calls = {
         "extract_codes": (lambda: K.extract_codes(*chunk["k1"]),
                           lambda: K.extract_codes_plain(*chunk["k1"])),
@@ -330,10 +393,17 @@ def main() -> int:
                            lambda: K.cost_table_plain(*a10d)),
         "grant_fill": (lambda: K.grant_fill(*a9["mnr"]),
                        lambda: K.grant_fill_plain(*a9["mnr"])),
+        "closed_form": (lambda: K.closed_form(*a8),
+                        lambda: K.closed_form_plain(*a8)),
+        "closed_form_f64": (lambda: K.closed_form(*a8d),
+                            lambda: K.closed_form_plain(*a8d)),
+        "pack_words": (lambda: K.pack_words(*a3),
+                       lambda: K.pack_words_plain(*a3)),
     }
     # bit for bit, else K4_RTOL
     exact = ("extract_codes", "water_fill", "huffman_walk", "exact_scan",
-             "cost_table", "cost_table_f64", "grant_fill")
+             "cost_table", "cost_table_f64", "grant_fill", "closed_form",
+             "closed_form_f64", "pack_words")
 
     def use(name):
         K._lib = libs.get(name, libs["this"])
@@ -408,6 +478,8 @@ def main() -> int:
             per_line(torch, K, chip_smoke, libs, use, walk, chunk["k5"])
         if "grant_fill" in args.kernels:
             per_grant(torch, K, chip_smoke, libs, use, a9)
+        if "closed_form" in args.kernels:
+            per_trip(torch, K, chip_smoke, libs, use, a8, args.rounds)
     finally:
         use("this")
     print(json.dumps({"sm_clock_mhz": chip_smoke.sm_clock_mhz()}))
