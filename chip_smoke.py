@@ -97,6 +97,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
    file's first 512 blocks gives the Engine's own SMRs and mixed lines
    (the "surface" path: K4 launched).
 
+K3 is held in both of its forms: pack_payload, the whole payload pack as
+the engine launches it (its plain version bitpack.pack_payload_bits_plain),
+on the payload fields of the 60 s file's first 512 blocks at the word
+buckets 256, 384 and 968 and on the k3_edge rows, also against the parent
+commit's pack step (pack_prologue_and_k3: the torch prologue, then
+pack_words), timed beside that step, the launch floor and its byte bound,
+with its ptxas registers and spills; and pack_words, the TPU kernel's own
+contract, on k3_args.  The kernels line names K3 by pack_payload; phase 2
+checks that the main path launches pack_words no more.
+
 Phase 1 also holds K2 past 32 bands (k2_edge "40-bands") and in float64,
 K4 and K6 in float64, K5 on a 96-band stream, K10 and K7 on a real
 512-block chunk in float32 and float64 (K10 also mono, on a trained table
@@ -119,6 +129,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -168,7 +179,9 @@ K6_F64_RTOL = 1e-12
 REPLACES = {                 # the TPU kernel body each CUDA kernel replaces
     "extract_codes": ("extract_codes.cu", "pactpu/ops/pallas_ops.py:240"),
     "water_fill": ("water_fill.cu", "pactpu/ops/pallas_ops.py:339"),
-    "pack_words": ("pack_words.cu", "pactpu/ops/pallas_ops.py:176"),
+    # K3 as the engine launches it: pactpu/ops/bitpack.py:90
+    # pack_payload_bits whole, its Pallas call's body included
+    "pack_payload": ("pack_words.cu", "pactpu/ops/pallas_ops.py:176"),
     "spread_maskers_up": ("spread_up.cu", "pactpu/ops/pallas_ops.py:85"),
     "huffman_walk": ("huffman_walk.cu", "pactpu/ops/huffman_walk.py:230"),
     "spread_maskers": ("spread.cu", "pactpu/ops/pallas_ops.py:50"),
@@ -184,7 +197,7 @@ REPLACES = {                 # the TPU kernel body each CUDA kernel replaces
 }
 # the path whose launches each kernel's "launches" reports
 PATH_OF = {"extract_codes": "main", "water_fill": "main",
-           "pack_words": "main", "spread_maskers_up": "main",
+           "pack_payload": "main", "spread_maskers_up": "main",
            "huffman_walk": "device-parse", "spread_maskers": "aidan",
            "exact_scan": "exact", "closed_form": "alloc-closed_form",
            "grant_fill": "alloc-const_mnr", "cost_table": "exact"}
@@ -694,6 +707,87 @@ def k3_args(torch, dev) -> list:
     return out
 
 
+K3_EDGES = ("all-off", "escape-29", "wide-values", "overflow")
+# the engine's word buckets that the packer runs at
+K3_WORDS = (256, 384, 968)
+
+
+def k3_fields(rng, rows: int, n_lines) -> dict:
+    """Payload fields as the final pass gives them to the packer, numpy
+    int32 (overall, tid [rows]; ba, sf, lrms [rows, bands]; sign, codes,
+    lens [rows, lines]): allocations 0 or 2-16 bits, codes below 2^lens
+    of 1 to 20 bits, sign, codes and lens zero on bands without bits."""
+    n_lines = np.asarray(n_lines)
+    nb, total = len(n_lines), int(n_lines.sum())
+    seg = np.repeat(np.arange(nb), n_lines)
+    ba = np.where(rng.random((rows, nb)) < 0.3, 0,
+                  rng.integers(2, 17, (rows, nb)))
+    on = ba[:, seg] > 0
+    lens = np.where(on, rng.integers(1, 21, (rows, total)), 0)
+    codes = rng.integers(0, 1 << 20, (rows, total)) & ((1 << lens) - 1)
+    f = dict(overall=rng.integers(0, 16, rows),
+             tid=rng.integers(1, 11, rows), ba=ba,
+             sf=rng.integers(0, 16, (rows, nb)),
+             sign=np.where(on, rng.integers(0, 2, (rows, total)), 0),
+             codes=codes, lens=lens, lrms=rng.integers(0, 2, (rows, nb)))
+    return {k: v.astype(np.int32) for k, v in f.items()}
+
+
+K3_KEYS = ("overall", "tid", "ba", "sf", "sign", "codes", "lens", "lrms")
+
+
+def k3_edge(name: str, n_lines) -> dict:
+    """Edge rows of K3's payload pack (k3_fields' form, 6 rows): every band
+    off (the header, allocation, scale and LRMS fields alone); every line
+    coded at the longest escape, 29 bits (30,953 bits a row: the 968-word
+    bucket's case, past 256 and 384 words); values wider than their
+    widths (codes and every other field over all 32 bits, signs 0-7 and
+    negative, allocations up to 2^31: each spills into the bits before
+    it); rows whose items run past 256 words (10-20-bit codes; dropped
+    words, the full nbits)."""
+    rng = np.random.default_rng(320 + K3_EDGES.index(name))
+    f = k3_fields(rng, 6, n_lines)
+    shape = f["codes"].shape
+    if name == "all-off":
+        for k in ("ba", "sign", "codes", "lens"):
+            f[k][:] = 0
+    elif name == "escape-29":
+        f["ba"] = rng.integers(2, 17, f["ba"].shape)
+        f["lens"] = np.full(shape, 29)
+        f["codes"] = rng.integers(0, 1 << 29, shape)
+        f["sign"] = rng.integers(0, 2, shape)
+    elif name == "wide-values":
+        i32 = lambda s: rng.integers(-2 ** 31, 2 ** 31, s)  # noqa: E731
+        for k in ("overall", "tid", "sf", "lrms", "codes"):
+            f[k] = i32(f[k].shape)
+        f["ba"] = np.where(rng.random(f["ba"].shape) < 0.2, 0,
+                           rng.integers(1, 2 ** 31, f["ba"].shape))
+        f["ba"][0, ::2] = -5
+        f["sign"] = rng.integers(-3, 8, shape)
+        f["lens"] = rng.integers(0, 30, shape)
+    elif name == "overflow":
+        f["lens"] = np.where(f["lens"] > 0, rng.integers(10, 21, shape), 0)
+    return {k: np.asarray(v).astype(np.int32) for k, v in f.items()}
+
+
+def k3_tensors(torch, fields: dict, dev) -> tuple:
+    """k3_fields' arrays as the packer's first eight arguments on dev."""
+    return tuple(torch.from_numpy(fields[k]).to(dev) for k in K3_KEYS)
+
+
+def pack_prologue_and_k3(fields: tuple, cfg, n_words: int):
+    """The parent commit's pack_payload_bits on the card: the int64 torch
+    prologue (bitpack.payload_parts, about 60 launches a chunk) and then
+    K3's one-to-one form, kernels.pack_words, on its pre-shifted parts."""
+    from pactpu_torch.ops import bitpack
+    from pactpu_torch.ops import kernels as K
+    p = bitpack._plan_tensors(tuple(cfg.band_layout.n_lines),
+                              cfg.n_scale_bits, cfg.n_mant_size_bits,
+                              cfg.n_table_id_bits, str(fields[0].device))
+    part0, part1, w0, nbits = bitpack.payload_parts(*fields, p)
+    return K.pack_words(part0, part1, w0, n_words), nbits
+
+
 def k8_args(torch, dev_tables, pcm: np.ndarray, blocks: int = 512):
     """K8 closed_form's arguments on the rows of one chunk of pcm (both
     channels, the flat per-channel budget), in dev_tables' precision."""
@@ -991,10 +1085,13 @@ def k9_step_rows(torch, n_lines, rows: int) -> dict:
 
 
 def main_path_inputs(torch, dev_tables, pcm: np.ndarray, blocks: int = 512,
-                     stream: bytes = None, parts=("k1", "k4", "k2", "k6")):
-    """What one chunk of its path hands to K1, K4, K2, K6 and K5: K1's
+                     stream: bytes = None,
+                     parts=("k1", "k4", "k2", "k6", "k3")):
+    """What one chunk of its path hands to K1, K4, K2, K6, K3 and K5: K1's
     from k1_main_input; K4's arguments from the chunk's masker levels
-    (6 * blocks rows); K2's from
+    (6 * blocks rows); K3's payload fields (`k3`, the packer's first eight
+    arguments, 2 * blocks rows) from the chunk's final pass without the
+    reservoir's extra bits; K2's from
     its SMRs plus edge rows (zero budgets, budgets that drive bands to the
     16-bit cap, ties in SMR); K6's from the compacted weighted-mode maskers
     of the same rows; and, given `stream` (the encode of `pcm`), K5's: the
@@ -1015,8 +1112,13 @@ def main_path_inputs(torch, dev_tables, pcm: np.ndarray, blocks: int = 512,
         mspl, peak = psycho.masker_levels(variants, psy["hann"])
         iprime = psycho.masker_intensity(mspl, peak, drops)
         out["k4"] = (iprime, mspl, psy["bin_bark"], psy["zvec"])
-    if "k2" in parts:
+    if "k2" in parts or "k3" in parts:
         analysis = E.analyze(E.CodecConfig(), frames, dev_tables)
+    if "k3" in parts:
+        out["k3"] = E.payload_rows(E.finalize(
+            E.CodecConfig(), analysis, torch.zeros(blocks, device=dev),
+            dev_tables, pack_words=0))
+    if "k2" in parts:
         smr = analysis["smr"][:, 0].contiguous().clone()
         lrms = analysis["lrms"].contiguous().clone()
         total = torch.full((blocks,), 2116, dtype=torch.int32, device=dev)
@@ -1209,6 +1311,7 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
     record("pack_words", err3, lambda: K.pack_words(p0, p1, w0, 256),
            lambda: K.pack_words_plain(p0, p1, w0, 256),
            nbytes(p0, p1, w0, out), 2 * p0.numel(), library=scatter)
+    phase1_pack(torch, chunk["k3"], record, extra)
 
     # K5: the first 1,024 channel-block rows of the 60 s stream at their
     # word bucket, plus 64 copies with one word XORed with random bits
@@ -1343,6 +1446,82 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
     for name, r in res.items():
         say("1-kernel", name=name, **r, **extra[name])
     return res
+
+
+def ptxas_of(kernel: str) -> dict:
+    """ptxas's registers and spill bytes for the entry function whose name
+    holds `kernel`, from the kernels' build log."""
+    from pactpu_torch.ops import kernels as K
+    with open(K.BUILD_LOG) as f:
+        lines = f.read().splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or kernel not in line:
+            continue
+        for nxt in lines[i + 1:i + 6]:
+            if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", nxt):
+                out.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+            if m := re.search(r"Used (\d+) registers", nxt):
+                out["registers"] = int(m[1])
+                break
+    return out
+
+
+def phase1_pack(torch, fields: tuple, record, extra: dict) -> None:
+    """K3 as the engine launches it (kernels.pack_payload, through
+    bitpack.pack_payload_bits) bit for bit against its plain version on a
+    real chunk's payload fields at every word bucket and on the k3_edge
+    rows; timed at 256 words beside the launch floor and the parent's way
+    (pack_prologue_and_k3)."""
+    from pactpu_torch import CodecConfig
+    from pactpu_torch.ops import bitpack
+    cfg = CodecConfig()
+    layout = (cfg.band_layout.n_lines, cfg.n_scale_bits,
+              cfg.n_mant_size_bits, cfg.n_table_id_bits)
+    dev = fields[0].device
+    check(fields[4].shape == (1024, 1024), "K3 payload rows "
+          f"{tuple(fields[4].shape)}")
+    for n_words in K3_WORDS:
+        words, nbits = bitpack.pack_payload_bits(*fields, *layout, n_words)
+        pw, pn = bitpack.pack_payload_bits_plain(*fields, *layout, n_words)
+        check(torch.equal(words, pw) and torch.equal(nbits, pn),
+              f"K3 pack_payload differs from its plain version at n_words "
+              f"{n_words}")
+        ow, on = pack_prologue_and_k3(fields, cfg, n_words)
+        check(torch.equal(words, ow) and torch.equal(nbits, on),
+              f"K3 pack_payload differs from the parts' K3 at {n_words}")
+        for name in K3_EDGES:
+            e = k3_tensors(torch, k3_edge(name, layout[0]), dev)
+            got = bitpack.pack_payload_bits(*e, *layout, n_words)
+            want = bitpack.pack_payload_bits_plain(*e, *layout, n_words)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"K3 pack_payload differs from its plain version on the "
+                  f"edge rows {name} at n_words {n_words}")
+    check(int(nbits.max()) <= 32 * 256, "a real row needs more than 256 "
+          "words")
+    words, nbits = bitpack.pack_payload_bits(*fields, *layout, 256)
+    items, groups = bitpack.device_plan(tuple(layout[0]), *layout[1:],
+                                        str(dev))
+    rows = fields[0].shape[0]
+
+    def fused():
+        return bitpack.pack_payload_bits(*fields, *layout, 256)
+
+    # bytes once: the fields, the plan, the words and nbits; operations
+    # about 30 integer operations an item
+    record("pack_payload", 0.0, fused,
+           lambda: bitpack.pack_payload_bits_plain(*fields, *layout, 256),
+           nbytes(*fields, items, groups, words, nbits),
+           30 * rows * items.shape[0])
+    parent = lambda: pack_prologue_and_k3(fields, cfg, 256)  # noqa: E731
+    extra["pack_payload"].update(
+        launch_floor_ms=launch_floor_ms(torch),
+        parent_ms=median_ms(torch, parent),
+        parent_device_ms=device_ms(torch, parent),
+        rows=rows, items=int(items.shape[0]),
+        nbits_mean=float(nbits.float().mean()),
+        ptxas=ptxas_of("pack_payload_kernel"))
 
 
 def phase1_alloc(torch, dev_tables, pcm: np.ndarray, record, res: dict,
@@ -1800,6 +1979,8 @@ def phase2(torch, eng, files):
         snrs.append(round(snr, 3))
     check_launched(launches, [k for k, v in PATH_OF.items() if v == "main"],
                    "the main path")
+    check(launches["pack_words"] == 0, "the main path packed through the "
+          "pre-shifted parts' K3 (pack_words)")
     say("2-main-path", files=len(files),
         blocks=[n_blocks(p) for p in files], snr_db=snrs,
         bytes=[len(s) for s, _ in serial], launches=launches)
@@ -1917,7 +2098,7 @@ def phase6(torch, make_engine, pcm) -> dict:
         sync(torch)
         launches[mode, prec] = dict(K.LAUNCHES)
         check_launched(launches[mode, prec],
-                       ["spread_maskers", "water_fill", "pack_words"],
+                       ["spread_maskers", "water_fill", "pack_payload"],
                        f"the {mode} {prec} path")
         check(launches[mode, prec]["spread_maskers_up"] == 0,
               f"the {mode} {prec} path ran the dense upslope kernel")
@@ -1952,7 +2133,7 @@ def mode_needs(fmt: str) -> dict:
     .pac one."""
     wak = fmt == "wak"
     return {"encode": ["spread_maskers_up", "water_fill"]
-            + (["pack_words"] if wak else []),
+            + (["pack_payload"] if wak else []),
             "decode-host": ["extract_codes"],
             "decode-device": ["extract_codes"]
             + (["huffman_walk"] if wak else [])}
@@ -2119,7 +2300,7 @@ def phase9(torch, make_engine, files) -> dict:
             enc = counts[tag, "encode"]
             kern = ALLOC_KERNEL[alloc]
             passes = 2 if rate == "reservoir" else 1
-            check_launched(enc, ["spread_maskers_up", "pack_words"]
+            check_launched(enc, ["spread_maskers_up", "pack_payload"]
                            + ([kern] if kern else []), f"{tag} encode")
             if DEV != "cpu":
                 # one launch a channel, pass and chunk (a chunk re-finalized
@@ -2234,7 +2415,8 @@ def phase9(torch, make_engine, files) -> dict:
     host_packed = counted("host-pack", make_engine(device_pack=False).encode,
                           pcm)
     check(host_packed == main, "device_pack=False gave other bytes")
-    check(counts["host-pack"]["pack_words"] == 0,
+    check(counts["host-pack"]["pack_payload"] == 0
+          and counts["host-pack"]["pack_words"] == 0,
           "device_pack=False launched K3")
     check(make_engine(debug_checks=True).encode(pcm) == main,
           "debug_checks=True gave other bytes")
@@ -2335,7 +2517,7 @@ def phase8(torch, make_engine, pcm: np.ndarray, chunks=(128, 512),
     sync(torch)
     launches = dict(K.LAUNCHES)
     check_launched(launches, ["exact_scan", "cost_table", "water_fill",
-                              "pack_words", "spread_maskers_up",
+                              "pack_payload", "spread_maskers_up",
                               "extract_codes"], "the exact path")
     parses_back(stream, eng.cfg, pcm)
     snr = snr_db(pcm, out)
@@ -2393,7 +2575,7 @@ def phase8(torch, make_engine, pcm: np.ndarray, chunks=(128, 512),
         f64_launches = dict(K.LAUNCHES)
         check_launched(f64_launches, ["exact_scan", "cost_table",
                                       "water_fill",
-                                      "spread_maskers_up", "pack_words"],
+                                      "spread_maskers_up", "pack_payload"],
                        f"the float64 exact path ({name})")
         diff = first_difference(mine, ref, cfg)
         line = dict(slice=name, blocks=n_blocks(x), bytes=len(mine),
@@ -2513,7 +2695,7 @@ def phase10(torch, make_engine, pcm: np.ndarray, files, ckpt_block=700,
             out16, dec16_s = timed(torch, lambda: stream_decode(gold, 16))
             launches = dict(K.LAUNCHES)
         splits[name] = dict(pushes=len(cut) - 1, encode_s=secs)
-    check_launched(launches, ["extract_codes", "water_fill", "pack_words",
+    check_launched(launches, ["extract_codes", "water_fill", "pack_payload",
                               "spread_maskers_up"], "the stream path")
     mid = ckpt_block * 1024 + 123
     cut = [0, mid] + [c for c in cuts["700-1s"] if c > mid]
@@ -2868,7 +3050,7 @@ def phase11(torch, make_engine, pcm: np.ndarray, long_pcm: np.ndarray,
         sync(torch)
         launches = dict(K.LAUNCHES)
         check_launched(launches, ["extract_codes", "water_fill",
-                                  "pack_words", "spread_maskers_up",
+                                  "pack_payload", "spread_maskers_up",
                                   "huffman_walk"], "the distributed path")
         check(all(np.array_equal(h, hists[0]) for h in hists),
               "the histogram depends on the mesh")

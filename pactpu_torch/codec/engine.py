@@ -230,6 +230,18 @@ def _transform(cfg: CodecConfig, frames_i16: torch.Tensor, dev: dict):
     return frames, sw, overall, lines * q.exp2i(overall, dt)[..., None]
 
 
+def payload_rows(out: dict) -> tuple:
+    """The payload packer's row fields (bitpack.pack_payload_bits' first
+    eight arguments: overall, tid, ba, sf, sign, codes, lens, lrms_row,
+    a row a channel-block) of a finalize dict that holds sign, codes and
+    lens (pack_words=0)."""
+    b, c = out["bits"].shape[:2]
+    rows = lambda a: a.reshape(b * c, *a.shape[2:])  # noqa: E731
+    return (*(rows(out[k]) for k in ("overall", "tid", "bits", "sf", "sign",
+                                     "codes", "lens")),
+            out["lrms"].to(torch.int32).repeat_interleave(c, dim=0))
+
+
 def finalize(cfg: CodecConfig, analysis: dict, extra0: torch.Tensor,
              dev: dict, pack_words: int = PACK_WORDS,
              measure_only: bool = False, return_syms: bool = False) -> dict:
@@ -293,17 +305,16 @@ def finalize(cfg: CodecConfig, analysis: dict, extra0: torch.Tensor,
 
     out = dict(overall=overall, lrms=lrms, bits=bits, sf=sf,
                tid=tid.reshape(b, c), savings=savings, leftover=left)
-    sign = torch.where(transmit, sign, 0)
+    fields = dict(sign=torch.where(transmit, sign, 0),
+                  codes=codes.reshape(b, c, half),
+                  lens=lens.reshape(b, c, half))
     if pack_words:
         out["words"], out["nbits"] = bitpack.pack_payload_bits(
-            overall.reshape(b * c), tid, bits.reshape(b * c, -1),
-            sf.reshape(b * c, -1), sign.reshape(b * c, half), codes, lens,
-            lrms.to(torch.int32).repeat_interleave(c, dim=0),
-            cfg.band_layout.n_lines, cfg.n_scale_bits, cfg.n_mant_size_bits,
-            cfg.n_table_id_bits, pack_words)
+            *payload_rows({**out, **fields}), cfg.band_layout.n_lines,
+            cfg.n_scale_bits, cfg.n_mant_size_bits, cfg.n_table_id_bits,
+            pack_words)
     else:
-        out.update(sign=sign, codes=codes.reshape(b, c, half),
-                   lens=lens.reshape(b, c, half))
+        out.update(fields)
     if return_syms:
         out["syms"] = torch.where(transmit, unsigned, -1)
     return out

@@ -37,6 +37,23 @@ int pactpu_pack_words(const uint32_t* part0, const uint32_t* part1,
                       const int32_t* w0, uint32_t* out, int rows, int items,
                       int n_words, cudaStream_t stream);
 
+// K3, the whole payload pack: words [rows, n_words] (MSB-first u32) and
+// nbits [rows] of each row's item stream, from overall and tid [rows], ba,
+// sf and lrms [rows, nb], sign, codes and lens [rows, lines], and the
+// layout's plan (item_plan [items]: perm << 8 | kind << 6 | const_width;
+// group_plan [groups]: start << 16 | len << 10 | band; built by
+// pactpu_torch/ops/bitpack.py:device_plan; items <= 4096).  Shared memory:
+// 4 bytes times 13 + 5 nb + 3 lines + 2 groups + ceil(lines / 32) + items
+// + n_words, at most 48 KB.
+int pactpu_pack_payload(const int32_t* overall, const int32_t* tid,
+                        const int32_t* ba, const int32_t* sf,
+                        const int32_t* sign, const int32_t* codes,
+                        const int32_t* lens, const int32_t* lrms,
+                        const int32_t* item_plan, const int32_t* group_plan,
+                        uint32_t* words, int32_t* nbits, int rows, int nb,
+                        int lines, int items, int groups, int n_words,
+                        cudaStream_t stream);
+
 // K4: upslope masking-intensity sum per (row, line); bark and zvec must be
 // ascending; in float32 and in float64.
 int pactpu_spread_up(const float* iprime, const float* mspl,

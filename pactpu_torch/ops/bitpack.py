@@ -8,13 +8,17 @@ payload of a batch of channel-blocks is made on the device:
    scaleFactor, sign bits in groups of up to 32, Huffman codes; trailing
    LRMS flags) is a static permutation of the concatenated field arrays.
 2. Bit offsets are an inclusive cumsum of the item widths, minus the width.
-3. Each item touches at most two 32-bit words; kernel K3
-   (pactpu_torch.ops.kernels.pack_words) sums the parts into MSB-first
-   words.
+3. Each item touches at most two 32-bit words, and the parts are summed
+   into MSB-first words.
 
-u32 values are handled in int64 with explicit masks (torch has no logical
-shift on int32), and the words travel as int32 bit patterns.  The host then
-frames ceil(nbits/8) big-endian bytes per row (pactpu_torch.native).
+On a CUDA device all three are one launch of kernel K3
+(pactpu_torch.ops.kernels.pack_payload, a CTA a row) on the plan packed
+by device_plan.  The plain version (pack_payload_bits_plain, what the CPU
+runs) is pactpu's arithmetic in torch ops: u32 values in int64 with
+explicit masks (torch has no logical shift on int32), then the scatter-add
+of kernels.pack_words_plain.  The words travel as int32 bit patterns.  The
+host then frames ceil(nbits/8) big-endian bytes per row
+(pactpu_torch.native).
 """
 
 from __future__ import annotations
@@ -84,36 +88,79 @@ def _pack_plan(n_lines: tuple, n_scale_bits: int, n_mant_size_bits: int,
             np.asarray(kind, np.int8), groups)
 
 
-@lru_cache(maxsize=8)
-def _plan_tensors(n_lines: tuple, n_scale_bits: int, n_mant_size_bits: int,
-                  n_table_id_bits: int, device: str) -> dict:
-    """The pack plan as device tensors (built once per layout and device)."""
-    perm, cw, kind, (g_band, g_start, g_len) = _pack_plan(
-        n_lines, n_scale_bits, n_mant_size_bits, n_table_id_bits)
-    total = int(np.sum(n_lines))
+def plan_dict(plan, device) -> dict:
+    """A plan in _pack_plan's form as the int64 tensors payload_parts
+    takes.  A band's lines are the runs of its sign groups, in order."""
+    perm, cw, kind, (g_band, g_start, g_len) = plan
+    total = int(np.sum(g_len))
     gl = np.arange(32, dtype=np.int64)[None, :]
     g_lines = np.minimum(g_start[:, None] + gl, total - 1)      # [G, 32]
     g_weights = np.where(gl < g_len[:, None],
                          1 << np.maximum(g_len[:, None] - 1 - gl, 0), 0)
-    seg = np.repeat(np.arange(len(n_lines)), np.asarray(n_lines, np.int64))
+    seg = np.repeat(g_band, g_len)
     t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)  # noqa: E731
     return dict(perm=t(perm), const_width=t(cw), kind=t(kind),
                 g_band=t(g_band), g_len=t(g_len), g_lines=t(g_lines),
                 g_weights=t(g_weights), seg=t(seg))
 
 
-def pack_payload_bits(overall, tid, ba, sf, sign, codes, lens, lrms_row,
-                      n_lines: tuple, n_scale_bits: int,
-                      n_mant_size_bits: int, n_table_id_bits: int,
-                      n_words: int):
-    """Pack a batch of channel-block payloads into MSB-first u32 words.
+@lru_cache(maxsize=8)
+def _plan_tensors(n_lines: tuple, n_scale_bits: int, n_mant_size_bits: int,
+                  n_table_id_bits: int, device: str) -> dict:
+    """The pack plan as device tensors (built once per layout and device)."""
+    return plan_dict(_pack_plan(n_lines, n_scale_bits, n_mant_size_bits,
+                                n_table_id_bits), device)
 
-    Shapes (R = channel-blocks): overall/tid int[R]; ba/sf int[R, nb];
-    sign/codes/lens int[R, L] (zeroed where untransmitted); lrms_row
-    bool/int[R, nb] (the per-block flags, replicated per channel).
-    Returns (words i32[R, n_words] u32 bit patterns, nbits i32[R])."""
-    p = _plan_tensors(tuple(int(x) for x in n_lines), n_scale_bits,
-                      n_mant_size_bits, n_table_id_bits, str(ba.device))
+
+# the device plan's fields (csrc/pack_words.cu): an item is perm << 8 |
+# kind << 6 | const_width, a sign group start << 16 | len << 10 | band
+_PERM_LIMIT, _BAND_LIMIT, _START_LIMIT = 1 << 23, 1 << 10, 1 << 15
+
+
+@lru_cache(maxsize=8)
+def device_plan(n_lines: tuple, n_scale_bits: int, n_mant_size_bits: int,
+                n_table_id_bits: int, device: str) -> tuple:
+    """_pack_plan packed for kernels.pack_payload, built once per layout
+    and device: (item_plan i32[M], group_plan i32[G])."""
+    perm, cw, kind, (g_band, g_start, g_len) = _pack_plan(
+        n_lines, n_scale_bits, n_mant_size_bits, n_table_id_bits)
+    if (perm.max(initial=0) >= _PERM_LIMIT or cw.max(initial=0) > 63
+            or g_band.max(initial=0) >= _BAND_LIMIT
+            or g_start.max(initial=0) >= _START_LIMIT):
+        raise ValueError("pack plan past the device plan's fields: at most "
+                         f"{_PERM_LIMIT} sources, widths of 63 bits, "
+                         f"{_BAND_LIMIT} bands, {_START_LIMIT} lines")
+    # the kernel reads a dynamic width from a code line or a sign group
+    nb, total = len(n_lines), int(np.sum(n_lines))
+    o_code, o_lrms = 2 + 2 * nb + total, 2 + 2 * nb + 2 * total
+    dyn = perm[kind != 0]
+    if not (((dyn >= o_code) & (dyn < o_lrms)) | (dyn >= o_lrms + nb)).all():
+        raise ValueError("pack plan: a dynamic width outside the codes and "
+                         "the sign groups")
+    items = (perm.astype(np.int64) << 8 | kind.astype(np.int64) << 6
+             | cw.astype(np.int64))
+    groups = (g_start.astype(np.int64) << 16 | g_len.astype(np.int64) << 10
+              | g_band.astype(np.int64))
+    return tuple(torch.as_tensor(a.astype(np.int32), device=device)
+                 for a in (items, groups))
+
+
+def decode_device_plan(item_plan: np.ndarray, group_plan: np.ndarray):
+    """device_plan's arrays back in _pack_plan's form (perm, const_width,
+    kind, (g_band, g_start, g_len))."""
+    it = np.asarray(item_plan, np.int64)
+    gp = np.asarray(group_plan, np.int64)
+    return ((it >> 8).astype(np.int32), (it & 63).astype(np.int32),
+            ((it >> 6) & 3).astype(np.int8),
+            ((gp & 1023).astype(np.int32), (gp >> 16).astype(np.int32),
+             ((gp >> 10) & 63).astype(np.int32)))
+
+
+def payload_parts(overall, tid, ba, sf, sign, codes, lens, lrms_row,
+                  p: dict):
+    """The parts of pactpu's pack_payload_bits ahead of its Pallas call, on
+    plan tensors p (plan_dict), in int64: (part0, part1, w0) i32[R, M]
+    and nbits i32[R].  Each item touches at most two 32-bit words."""
     r, nb = ba.shape
     i64 = lambda a: a.to(torch.int64)  # noqa: E731
     ba = i64(ba)
@@ -156,10 +203,47 @@ def pack_payload_bits(overall, tid, ba, sf, sign, codes, lens, lrms_row,
     part1 = torch.where(spill > 0,
                         (low << torch.clamp(32 - spill, 0, 31)) & _MASK32, 0)
     part0 = torch.where(widths > 0, part0, 0)
-    words = kernels.pack_words(kernels.u32_as_i32(part0),
-                               kernels.u32_as_i32(part1),
-                               w0.to(torch.int32), n_words)
-    return words, nbits.to(torch.int32)
+    return (kernels.u32_as_i32(part0), kernels.u32_as_i32(part1),
+            w0.to(torch.int32), nbits.to(torch.int32))
+
+
+def pack_payload_bits_plain(overall, tid, ba, sf, sign, codes, lens,
+                            lrms_row, n_lines: tuple, n_scale_bits: int,
+                            n_mant_size_bits: int, n_table_id_bits: int,
+                            n_words: int):
+    """Plain version of pack_payload_bits (of kernel K3's pack_payload):
+    payload_parts on _pack_plan's tensors, summed by
+    kernels.pack_words_plain (the scatter-add of pactpu's XLA path)."""
+    p = _plan_tensors(tuple(int(x) for x in n_lines), n_scale_bits,
+                      n_mant_size_bits, n_table_id_bits, str(ba.device))
+    part0, part1, w0, nbits = payload_parts(overall, tid, ba, sf, sign,
+                                            codes, lens, lrms_row, p)
+    return kernels.pack_words_plain(part0, part1, w0, n_words), nbits
+
+
+def pack_payload_bits(overall, tid, ba, sf, sign, codes, lens, lrms_row,
+                      n_lines: tuple, n_scale_bits: int,
+                      n_mant_size_bits: int, n_table_id_bits: int,
+                      n_words: int):
+    """Pack a batch of channel-block payloads into MSB-first u32 words.
+
+    Shapes (R = channel-blocks): overall/tid int[R]; ba/sf int[R, nb];
+    sign/codes/lens int[R, L] (zeroed where untransmitted); lrms_row
+    bool/int[R, nb] (the per-block flags, replicated per channel).
+    Returns (words i32[R, n_words] u32 bit patterns, nbits i32[R]): on a
+    CUDA device one launch of kernel K3 (kernels.pack_payload), on the CPU
+    the plain version."""
+    if ba.device.type == "cpu":
+        return pack_payload_bits_plain(
+            overall, tid, ba, sf, sign, codes, lens, lrms_row, n_lines,
+            n_scale_bits, n_mant_size_bits, n_table_id_bits, n_words)
+    item_plan, group_plan = device_plan(
+        tuple(int(x) for x in n_lines), n_scale_bits, n_mant_size_bits,
+        n_table_id_bits, str(ba.device))
+    i32 = lambda a: a.to(torch.int32).contiguous()  # noqa: E731
+    return kernels.pack_payload(
+        i32(overall), i32(tid), i32(ba), i32(sf), i32(sign), i32(codes),
+        i32(lens), i32(lrms_row), item_plan, group_plan, n_words)
 
 
 def compact_rows(words: torch.Tensor, nbits: torch.Tensor,

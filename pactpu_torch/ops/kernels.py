@@ -6,6 +6,7 @@ PyTorch versions and their launch counts.
 | extract_codes     | ops/pallas_ops._extract_codes_kernel  | extract_codes.cu |
 | water_fill        | ops/pallas_ops._water_fill_kernel     | water_fill.cu    |
 | pack_words        | ops/pallas_ops._pack_words_kernel     | pack_words.cu    |
+| pack_payload      | ops/bitpack.pack_payload_bits, whole  | pack_words.cu    |
 | spread_maskers_up | ops/pallas_ops._make_spread_up_kernel | spread_up.cu     |
 | huffman_walk      | ops/huffman_walk._walk_kernel         | huffman_walk.cu  |
 | spread_maskers    | ops/pallas_ops._spread_kernel         | spread.cu        |
@@ -17,6 +18,9 @@ PyTorch versions and their launch counts.
 water_fill, spread_maskers_up, spread_maskers, exact_scan, closed_form and
 cost_table also have a float64 form (a second C function of the same
 source, counted under the same name), for Engine(precision="f64").
+pack_payload is K3 as the engine launches it: the whole payload pack of
+pactpu.ops.bitpack.pack_payload_bits, Pallas call included; pack_words
+is K3's own contract, the accumulation of pre-shifted parts.
 
 The CUDA sources are compiled by hand with nvcc for sm_90a (one nvcc per
 source, in parallel) into one shared library with a plain C interface
@@ -64,6 +68,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches of each kernel since the last reset_launches(); the plain
 # versions never count
 LAUNCHES = {"extract_codes": 0, "water_fill": 0, "pack_words": 0,
+            "pack_payload": 0,
             "spread_maskers_up": 0, "huffman_walk": 0, "spread_maskers": 0,
             "exact_scan": 0, "closed_form": 0, "grant_fill": 0,
             "cost_table": 0}
@@ -94,6 +99,7 @@ _C_FUNCS = {
     "water_fill": ("pactpu_water_fill",
                    [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P]),
     "pack_words": ("pactpu_pack_words", [_P] * 4 + [_I] * 3 + [_P]),
+    "pack_payload": ("pactpu_pack_payload", [_P] * 12 + [_I] * 6 + [_P]),
     "spread_maskers_up": ("pactpu_spread_up", [_P] * 5 + [_I] * 3 + [_P]),
     "huffman_walk": ("pactpu_huffman_walk", [_P] * 9 + [_I] * 9 + [_P]),
     "spread_maskers": ("pactpu_spread", [_P] * 7 + [_I] * 3 + [_P]),
@@ -421,6 +427,81 @@ def pack_words_plain(part0, part1, w0, n_words: int) -> torch.Tensor:
         idx = torch.where((idx >= 0) & (idx < n_words), idx, n_words)
         acc.scatter_add_(1, idx.long(), part.long() & _MASK32)
     return u32_as_i32(acc[:, :n_words] & _MASK32)
+
+
+# pack_payload's CTA (csrc/pack_words.cu): its shared memory and the
+# items its 128 threads hold in registers
+PAYLOAD_SMEM_LIMIT = 48 * 1024
+PAYLOAD_MAX_ITEMS = 128 * 32
+
+
+def pack_payload(overall: torch.Tensor, tid: torch.Tensor, ba: torch.Tensor,
+                 sf: torch.Tensor, sign: torch.Tensor, codes: torch.Tensor,
+                 lens: torch.Tensor, lrms: torch.Tensor,
+                 item_plan: torch.Tensor, group_plan: torch.Tensor,
+                 n_words: int):
+    """The whole payload pack of a batch of channel-block rows (K3 as the
+    engine launches it: pactpu.ops.bitpack.pack_payload_bits).
+
+    overall/tid: i32[R]; ba/sf/lrms: i32[R, nb]; sign/codes/lens: i32[R,
+    L]; item_plan i32[M] and group_plan i32[G]: the layout's plan
+    (bitpack.device_plan).  Returns (words i32[R, n_words] u32 bit
+    patterns, nbits i32[R]), bit for bit those of
+    bitpack.pack_payload_bits_plain on the layout the plan encodes: nbits
+    is each row's full sum, past 32 * n_words too, whose words past
+    n_words are dropped.  The kernel takes at most PAYLOAD_MAX_ITEMS
+    items, a row whose shared memory (4 bytes times 13 + 5 nb + 3 L + 2 G
+    + ceil(L / 32) + M + n_words) fits in PAYLOAD_SMEM_LIMIT, and a plan
+    whose dynamic widths are those of code lines and sign groups
+    (device_plan's)."""
+    dev = ba.device
+    for name, t in (("overall", overall), ("tid", tid),
+                    ("item_plan", item_plan), ("group_plan", group_plan)):
+        _check(name, t, torch.int32, 1, dev)
+    for name, t in (("ba", ba), ("sf", sf), ("lrms", lrms), ("sign", sign),
+                    ("codes", codes), ("lens", lens)):
+        _check(name, t, torch.int32, 2, dev)
+    rows, nb = ba.shape
+    lines = sign.shape[1]
+    if (overall.shape[0] != rows or tid.shape[0] != rows
+            or sf.shape != ba.shape or lrms.shape != ba.shape
+            or sign.shape[0] != rows or codes.shape != sign.shape
+            or lens.shape != sign.shape):
+        raise ValueError("pack_payload: shapes disagree")
+    if _on_cpu(dev):
+        return pack_payload_plain(overall, tid, ba, sf, sign, codes, lens,
+                                  lrms, item_plan, group_plan, n_words)
+    items, groups = item_plan.shape[0], group_plan.shape[0]
+    if items > PAYLOAD_MAX_ITEMS:
+        raise ValueError(f"pack_payload kernel: {items} items, past "
+                         f"{PAYLOAD_MAX_ITEMS} (32 a thread)")
+    smem = 4 * (13 + 5 * nb + 3 * lines + 2 * groups + -(-lines // 32)
+                + items + int(n_words))
+    if smem > PAYLOAD_SMEM_LIMIT:
+        raise ValueError(f"pack_payload kernel: a row needs {smem} bytes of "
+                         f"shared memory, past {PAYLOAD_SMEM_LIMIT}")
+    words = torch.empty((rows, n_words), dtype=torch.int32, device=dev)
+    nbits = torch.empty(rows, dtype=torch.int32, device=dev)
+    if rows:
+        _launch("pack_payload", dev, *(_ptr(t) for t in (
+            overall, tid, ba, sf, sign, codes, lens, lrms, item_plan,
+            group_plan, words, nbits)), rows, nb, lines, items, groups,
+            int(n_words))
+    return words, nbits
+
+
+def pack_payload_plain(overall, tid, ba, sf, sign, codes, lens, lrms,
+                       item_plan, group_plan, n_words: int):
+    """Plain version of pack_payload: the plan decoded to pactpu's
+    (bitpack.decode_device_plan), then bitpack.pack_payload_bits_plain's
+    int64 arithmetic and pack_words_plain."""
+    from pactpu_torch.ops import bitpack
+    plan = bitpack.decode_device_plan(item_plan.cpu().numpy(),
+                                      group_plan.cpu().numpy())
+    p = bitpack.plan_dict(plan, ba.device)
+    part0, part1, w0, nbits = bitpack.payload_parts(
+        overall, tid, ba, sf, sign, codes, lens, lrms, p)
+    return pack_words_plain(part0, part1, w0, n_words), nbits
 
 
 # -- K4 spread_maskers_up ----------------------------------------------------

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 import chip_smoke
-from pactpu_torch import Engine
+from pactpu_torch import CodecConfig, Engine
+from pactpu_torch.ops import bitpack
 from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
@@ -29,9 +30,9 @@ def test_synth_is_seeded():
     assert not np.array_equal(a, chip_smoke.synth(0.2, 4))
 
 
-KERNELS = {"extract_codes", "water_fill", "pack_words", "spread_maskers_up",
-           "huffman_walk", "spread_maskers", "exact_scan", "closed_form",
-           "grant_fill", "cost_table"}
+KERNELS = {"extract_codes", "water_fill", "pack_words", "pack_payload",
+           "spread_maskers_up", "huffman_walk", "spread_maskers",
+           "exact_scan", "closed_form", "grant_fill", "cost_table"}
 
 
 def test_phases_on_cpu(monkeypatch, capsys):
@@ -74,7 +75,8 @@ def test_mode_needs():
     """Phase 7's launch checks: K3 only on the .wak packer, K5 only on the
     .wak device-parse route, K1 on every decode."""
     wak, pac = chip_smoke.mode_needs("wak"), chip_smoke.mode_needs("pac")
-    assert "pack_words" in wak["encode"] and "pack_words" not in pac["encode"]
+    assert ("pack_payload" in wak["encode"]
+            and "pack_payload" not in pac["encode"])
     assert "huffman_walk" in wak["decode-device"]
     assert pac["decode-device"] == pac["decode-host"] == ["extract_codes"]
 
@@ -145,6 +147,7 @@ def test_alloc_phase_on_cpu(monkeypatch, capsys):
     assert len(surface) == 1
     assert "decode_parse='host'" in surface[0]["unfit_refusal"]
     assert surface[0]["host_pack_launches"]["pack_words"] == 0
+    assert surface[0]["host_pack_launches"]["pack_payload"] == 0
 
 
 def test_unfit_tables_break_the_walk_lut():
@@ -184,7 +187,10 @@ def test_first_difference_names_the_stage():
 
 def test_kernel_tables_agree():
     from pactpu_torch.ops import kernels as K
-    assert set(chip_smoke.REPLACES) == set(chip_smoke.PATH_OF) == KERNELS
+    # pack_words, K3's one-to-one form, is held and timed in phase 1 but
+    # runs on no path: the kernels line names K3 by pack_payload
+    assert (set(chip_smoke.REPLACES) == set(chip_smoke.PATH_OF)
+            == KERNELS - {"pack_words"})
     assert set(K.LAUNCHES) == set(K._C_FUNCS) == KERNELS
     assert {src for src, _ in chip_smoke.REPLACES.values()} == set(K.SOURCES)
 
@@ -233,6 +239,15 @@ def test_main_path_inputs_on_cpu():
     rec = K.huffman_walk(*chunk["k5"])
     assert not rec[3][:160, 2].any()
     assert not torch.equal(rec[0][160:], rec[0][:64])    # the XORed copies
+    fields = chunk["k3"]
+    assert [tuple(f.shape) for f in fields] == [(160,)] * 2 + [(160, 25)] * 2 \
+        + [(160, 1024)] * 3 + [(160, 25)]
+    assert all(f.dtype == torch.int32 and f.is_contiguous() for f in fields)
+    lay = (eng.cfg.band_layout.n_lines, 4, 4, 4)
+    words, nbits = bitpack.pack_payload_bits(*fields, *lay, 256)
+    assert bool((nbits <= 32 * 256).all()) and bool((nbits > 233).any())
+    assert all(torch.equal(a, b) for a, b in zip(
+        (words, nbits), chip_smoke.pack_prologue_and_k3(fields, eng.cfg, 256)))
 
 
 def test_edge_inputs_are_seeded():
@@ -248,6 +263,14 @@ def test_edge_inputs_are_seeded():
         for name in names:
             for a, b in zip(make(name), make(name)):
                 np.testing.assert_array_equal(a, b)
+    for name in chip_smoke.K3_EDGES:
+        n_lines = CodecConfig().band_layout.n_lines
+        a, b = chip_smoke.k3_edge(name, n_lines), chip_smoke.k3_edge(
+            name, n_lines)
+        assert list(a) == list(chip_smoke.K3_KEYS)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+            assert a[k].dtype == np.int32
     for name in chip_smoke.K5_EDGES:
         a, b = chip_smoke.k5_edge(name), chip_smoke.k5_edge(name)
         np.testing.assert_array_equal(a["words"], b["words"])

@@ -155,6 +155,106 @@ def test_pack_words_edges(cuda, rows, items, n_words):
     assert torch.equal(out, K.pack_words_plain(p0, p1, w0, n_words))
 
 
+def _layout():
+    cfg = CodecConfig()
+    return (cfg.band_layout.n_lines, cfg.n_scale_bits, cfg.n_mant_size_bits,
+            cfg.n_table_id_bits)
+
+
+def _pack_both(fields, n_words):
+    from pactpu_torch.ops import bitpack
+    lay = _layout()
+    got = bitpack.pack_payload_bits(*fields, *lay, n_words)
+    torch.cuda.synchronize()
+    return got, bitpack.pack_payload_bits_plain(*fields, *lay, n_words)
+
+
+@pytest.mark.parametrize("n_words", chip_smoke.K3_WORDS)
+@pytest.mark.parametrize("name", chip_smoke.K3_EDGES)
+def test_pack_payload_edges(cuda, name, n_words):
+    """K3's payload pack on chip_smoke.k3_edge's rows: every band off,
+    every line at 29 bits, values past their widths, rows past 256
+    words."""
+    fields = chip_smoke.k3_tensors(
+        torch, chip_smoke.k3_edge(name, _layout()[0]), cuda)
+    got, want = _pack_both(fields, n_words)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n_words", chip_smoke.K3_WORDS)
+@pytest.mark.parametrize("rows,wide", [(1, False), (7, True), (1024, False),
+                                       (1031, True)])
+def test_pack_payload_random(cuda, rows, wide, n_words):
+    """Seeded fields as the final pass gives them, and (wide) every field
+    over all 32 bits with lens 0-29."""
+    rng = np.random.default_rng(rows + n_words)
+    f = chip_smoke.k3_fields(rng, rows, _layout()[0])
+    if wide:
+        f = {k: _i32(rng, v.shape).numpy() for k, v in f.items()}
+        f["lens"] = rng.integers(0, 30, f["lens"].shape).astype(np.int32)
+    got, want = _pack_both(chip_smoke.k3_tensors(torch, f, cuda), n_words)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# band layouts past the default's: 150 bands of 7 lines (1,050 lines, no
+# multiple of 4: scalar staging; 1,652 items: 16 a thread), 32 bands of 64
+# (2,048 lines: quads past the first two a thread, signs beyond the bit
+# words; 2,210 items: 32 a thread), three bands of 48 lines
+PACK_LAYOUTS = {"150-bands": (7,) * 150, "2048-lines": (64,) * 32,
+                "48-lines": (3, 5, 40)}
+
+
+@pytest.mark.parametrize("name", list(PACK_LAYOUTS))
+def test_pack_payload_layouts(cuda, name):
+    """Each form of the kernel (9, 16 and 32 items a thread), staging by
+    quads and by lines, rows of 0/1 signs and of wider ones."""
+    from pactpu_torch.ops import bitpack
+    n_lines = PACK_LAYOUTS[name]
+    rng = np.random.default_rng(len(n_lines))
+    f = chip_smoke.k3_fields(rng, 40, n_lines)
+    f["sign"][::3] = rng.integers(-2, 5, f["sign"][::3].shape)
+    fields = chip_smoke.k3_tensors(torch, f, cuda)
+    got = bitpack.pack_payload_bits(*fields, n_lines, 4, 4, 4, 968)
+    torch.cuda.synchronize()
+    want = bitpack.pack_payload_bits_plain(*fields, n_lines, 4, 4, 4, 968)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_pack_payload_unaligned(cuda):
+    """Line fields that start 4 bytes past a 16-byte boundary: the kernel
+    stages them line by line."""
+    from pactpu_torch.ops import bitpack
+    lay = _layout()
+    f = chip_smoke.k3_fields(np.random.default_rng(5), 16, lay[0])
+    fields = list(chip_smoke.k3_tensors(torch, f, cuda))
+    for i in (4, 5, 6):
+        big = torch.zeros(fields[i].numel() + 1, dtype=torch.int32,
+                          device=cuda)
+        big[1:] = fields[i].reshape(-1)
+        fields[i] = big[1:].view(fields[i].shape)
+        assert fields[i].data_ptr() % 16 == 4
+    got, want = _pack_both(fields, 256)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_pack_payload_once_a_finalize(cuda):
+    """finalize with packing launches K3's payload pack once and the
+    parts' K3 never; without packing neither."""
+    from pactpu_torch.codec import engine as E
+    cfg = CodecConfig()
+    tables = E.device_tables(cfg, cuda)
+    pcm = chip_smoke.synth(1.0, 8)
+    frames = chip_smoke.chunk_frames(torch, pcm, 44, cuda)
+    a = E.analyze(cfg, frames, tables)
+    extra = torch.zeros(44, device=cuda)
+    for pack_words, want in ((E.PACK_WORDS, 1), (0, 0)):
+        K.reset_launches()
+        E.finalize(cfg, a, extra, tables, pack_words=pack_words)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["pack_payload"] == want
+        assert K.LAUNCHES["pack_words"] == 0
+
+
 @pytest.mark.parametrize("rows,k,l", [(1, 128, 300), (17, 100, 1024),
                                       (2, 4096, 1024), (3, 37, 1100),
                                       (4, 1, 31), (2, 1000, 2049)])
@@ -675,7 +775,7 @@ def test_engine_surface_on_the_card(cuda):
     main = Engine(device=cuda).encode(pcm)
     K.reset_launches()
     assert Engine(device=cuda, device_pack=False).encode(pcm) == main
-    assert K.LAUNCHES["pack_words"] == 0
+    assert K.LAUNCHES["pack_words"] == K.LAUNCHES["pack_payload"] == 0
     shipped = Engine(device=cuda, rate_mode="cbr")
     _, ref = shipped.decode(shipped.encode(pcm))
     hist = np.zeros(huffman_train.NUM_SYMBOLS, np.int64)

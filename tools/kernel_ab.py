@@ -35,7 +35,14 @@ rows: both channels at the flat budget; closed_form_f64 on its float64
 analysis) the chunk's trips and each version's ns a trip and time on rows
 that take no trip, in both types, beside the launch floor (per_trip);
 pack_words (K3) runs on phase 1's 1,024 rows of 1,148 parts and prints
-its byte bound.  The cost tables' plain version (the tensor
+its byte bound; pack_payload (K3 as the engine launches it,
+bitpack.pack_payload_bits) runs on the chunk's payload fields (1,024
+rows, 256 words) in every version whose library has it, and as the parent
+commit's pack step (chip_smoke.pack_prologue_and_k3: the int64 torch
+prologue, then pack_words on its parts) with each version's pack_words,
+as version "NAME:parts"; each version's line adds its device launches a
+call (torch.profiler's device events), and the kernel's line its byte
+bound and the launch floor.  The cost tables' plain version (the tensor
 operations kernel K10 replaced) takes its turns as version "plain"; a
 version whose K10 reads the table set unpacked (the earlier K10) is
 launched through cost_table_unpacked.
@@ -70,7 +77,19 @@ sys.path.insert(0, ROOT)
 CHOICES = ("extract_codes", "spread_maskers_up", "water_fill",
            "spread_maskers", "huffman_walk", "exact_scan", "cost_table",
            "cost_table_f64", "grant_fill", "closed_form", "closed_form_f64",
-           "pack_words")
+           "pack_words", "pack_payload")
+
+
+def device_launches(torch, fn) -> int:
+    """The device events (kernels, copies, fills) of one call of fn, as
+    torch.profiler traces them."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_type.name == "CUDA" for ev in prof.events())
 
 
 def cost_table_unpacked(torch, K, lib, a10):
@@ -366,6 +385,18 @@ def main() -> int:
         a8 = chip_smoke.k8_args(torch, device_tables(eng.cfg, "cuda"), pcm)
         a8d = chip_smoke.k8_args(torch, device_tables(eng.cfg, "cuda", "f64"),
                                  pcm)
+    if "pack_payload" in args.kernels:
+        from pactpu_torch.ops import bitpack
+        layout = (eng.cfg.band_layout.n_lines, eng.cfg.n_scale_bits,
+                  eng.cfg.n_mant_size_bits, eng.cfg.n_table_id_bits)
+        f3 = chunk["k3"]
+        w3, n3 = bitpack.pack_payload_bits_plain(*f3, *layout, 256)
+        plan3 = bitpack.device_plan(tuple(layout[0]), *layout[1:], "cuda")
+        print(json.dumps({"kernel": "pack_payload", "rows": w3.shape[0],
+                          "bound_ms": chip_smoke.nbytes(*f3, *plan3, w3, n3)
+                          / chip_smoke.PEAK_BYTES_PER_S * 1e3,
+                          "launch_floor_ms": chip_smoke.launch_floor_ms(
+                              torch)}))
     if "pack_words" in args.kernels:
         a3 = chip_smoke.k3_args(torch, torch.device("cuda"))[-1]
         out3 = K.pack_words(*a3)
@@ -399,14 +430,18 @@ def main() -> int:
                             lambda: K.closed_form_plain(*a8d)),
         "pack_words": (lambda: K.pack_words(*a3),
                        lambda: K.pack_words_plain(*a3)),
+        "pack_payload": (lambda: bitpack.pack_payload_bits(*f3, *layout,
+                                                           256),
+                         lambda: bitpack.pack_payload_bits_plain(
+                             *f3, *layout, 256)),
     }
     # bit for bit, else K4_RTOL
     exact = ("extract_codes", "water_fill", "huffman_walk", "exact_scan",
              "cost_table", "cost_table_f64", "grant_fill", "closed_form",
-             "closed_form_f64", "pack_words")
+             "closed_form_f64", "pack_words", "pack_payload")
 
-    def use(name):
-        K._lib = libs.get(name, libs["this"])
+    def use(name):                # "NAME:parts" runs NAME's library
+        K._lib = libs.get(name.split(":")[0], libs["this"])
         version[0] = name
 
     try:
@@ -431,6 +466,13 @@ def main() -> int:
                             a10d if f64 else a10)
                 names.append("plain")
                 run["plain"] = plain_fn
+            if kernel == "pack_payload":    # the parent's pack step
+                parts = functools.partial(chip_smoke.pack_prologue_and_k3,
+                                          f3, eng.cfg, 256)
+                for n, lib in libs.items():
+                    if hasattr(lib, K._C_FUNCS["pack_words"][0]):
+                        names.append(f"{n}:parts")
+                        run[f"{n}:parts"] = parts
             times = {name: [] for name in names}
             device = {name: [] for name in names}
             same, mine = {}, None    # bit for bit this checkout's result?
@@ -467,6 +509,9 @@ def main() -> int:
                         "median_ms_by_turn": ms,
                         "device_ms_by_turn": device[name],
                         "equals_this": same[name]}
+                if kernel == "pack_payload":
+                    use(name)
+                    line["launches"] = device_launches(torch, run[name])
                 if kernel == "exact_scan":   # the chain's greedy steps
                     line.update(steps=steps["steps"], fills=steps["fills"],
                                 ns_per_step=[d * 1e6 / steps["steps"]

@@ -66,6 +66,15 @@ def main() -> int:
     from chip_smoke import n_blocks, synth
     from pactpu_torch import CodecConfig, Engine
     from pactpu_torch.codec import exact
+    from pactpu_torch.ops import bitpack
+
+    pack = bitpack.pack_payload_bits
+
+    def pack_step(*a, **kw):          # the engine calls it through bitpack
+        with torch.profiler.record_function(PACK_STEP):
+            return pack(*a, **kw)
+
+    bitpack.pack_payload_bits = pack_step
 
     pcm = np.ascontiguousarray(synth(args.seconds, 4)[:, :args.channels])
     cfg = CodecConfig(peak_mode=args.peak_mode, n_channels=args.channels,
@@ -130,7 +139,8 @@ def main() -> int:
         prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
     kernels = {}
     for ev in prof.events():
-        if ev.device_type.name == "CUDA":           # a kernel or a copy
+        # a kernel or a copy (not the device-side span of PACK_STEP)
+        if ev.device_type.name == "CUDA" and ev.name != PACK_STEP:
             kernels[ev.name] = (kernels.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us())
     busy = sum(kernels.values()) / 1e6
@@ -148,7 +158,50 @@ def main() -> int:
         "idle_share": round(1 - busy / wall, 4), "blocks": blocks,
         "own_kernels_ms": own,
         "top_ms": {k[:120]: round(v / 1e3, 3) for k, v in top}}}))
+    print(json.dumps({**mode, "pack_step": pack_steps(prof.events())}))
     return 0
+
+
+PACK_STEP = "pack_step"
+
+
+def pack_steps(events) -> dict:
+    """Each PACK_STEP span of a trace: the device launches (kernels, copies,
+    fills) whose runtime call (cudaLaunchKernel and the like, on the host)
+    starts inside it, matched to the device's events by correlation id
+    (ctypes launches included, which no torch operator encloses), their
+    summed device time, the runtime calls themselves, and the torch
+    operators called in it."""
+    events = list(events)
+    device = {}
+    for ev in events:
+        if ev.device_type.name == "CUDA" and ev.name != PACK_STEP:
+            device.setdefault(ev.id, []).append(ev)
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in events
+             if ev.name == PACK_STEP and ev.device_type.name == "CPU"]
+    launches = [0] * len(spans)
+    device_us = [0.0] * len(spans)
+    calls = [0] * len(spans)
+    ops = [0] * len(spans)
+    for ev in events:
+        if ev.device_type.name != "CPU" or ev.name == PACK_STEP:
+            continue
+        runtime = ev.name.startswith("cu")
+        for i, (t0, t1) in enumerate(spans):
+            if not t0 <= ev.time_range.start <= t1:
+                continue
+            ops[i] += ev.name.startswith("aten::")
+            if runtime:
+                calls[i] += 1
+                for k in device.get(ev.id, ()):
+                    launches[i] += 1
+                    device_us[i] += k.time_range.elapsed_us()
+    mean = lambda v: round(sum(v) / max(len(v), 1), 3)  # noqa: E731
+    return dict(steps=len(spans), launches_mean=mean(launches),
+                device_ms_mean=round(mean(device_us) / 1e3, 6),
+                runtime_calls_mean=mean(calls), aten_ops_mean=mean(ops),
+                launches=launches, device_us=[round(u, 3) for u in device_us],
+                runtime_calls=calls, aten_ops=ops)
 
 
 if __name__ == "__main__":
