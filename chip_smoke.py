@@ -6,7 +6,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints one line; any failure raises and exits non-zero):
 
 0. environment: the card's name and power limit, torch and CUDA versions,
-   the build times of the ten CUDA kernels (nvcc, sm_90a) and of the
+   the build times of the eleven CUDA kernels (nvcc, sm_90a) and of the
    native bitstream runtime (g++);
 1. kernel parity at their paths' shapes: K1-K3 and K5 bit for bit against
    their plain PyTorch versions, K4 and K6 within a stated tolerance, each
@@ -95,7 +95,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
    table, and Engine(tables=...) of the trained set round-trips the file;
    frame_blocks on the card equals frame_blocks_np; stereo_smrs on the 60 s
    file's first 512 blocks gives the Engine's own SMRs and mixed lines
-   (the "surface" path: K4 launched).
+   (the "surface" path: K4 launched);
+13. the program layer (phase13): the four files through Engines whose
+   chunk stages run as CUDA-graph replays (pactpu_torch.codec.programs),
+   serial encode -> decode by both parse routes and roundtrip_many, in
+   the reservoir and cbr modes, against the eager stage chain in the same
+   run (eager_encode: the stage functions called chunk by chunk, the
+   reservoir replayed on the host by engine.reservoir_extras; eager_decode:
+   each chunk's stage function launch by launch): the same bytes and
+   samples, the streams' SHA-256 printed; the reservoir encode's dispatch
+   half (analysis, measurement and K11, final pass, compaction) under
+   torch.cuda.set_sync_debug_mode("error"), so no host sync and no
+   device-to-host copy between the PCM upload and the payload download;
+   the capture seconds, the memory reserved after the 60 s file's encode
+   and decode and again after a file of each tail bucket's size (every
+   bucket's programs captured, all an Engine's graphs in one memory pool),
+   and serial and batch blocks/s of the programs against the eager chain
+   in turns (the "programs" path: K1-K5 and K11 launched).
 
 K3 is held in both of its forms: pack_payload, the whole payload pack as
 the engine launches it (its plain version bitpack.pack_payload_bits_plain),
@@ -117,7 +133,9 @@ on the edge inputs of k8_edge / k9_edge to their plain versions (K8 also
 on k8_nonfinite and 203 bands), with K8's ns a trip, its time on rows
 that take no trip and the launch floor, and K9's walk (the grants its
 jump takes, the steps it walks, its probes) and its ns a walked step apart
-from the jump.
+from the jump; and K11 (reservoir_scan) bit for bit on the 60 s file's
+measurements chunk by chunk with its carry (and against the host replay)
+and on k11_edge's inputs, timed beside the launch floor.
 
 Then a JSON line with each kernel's launches (on its path, and on every
 path and mode measured), error and times, the nvidia-smi line, and last
@@ -127,6 +145,7 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -194,13 +213,16 @@ REPLACES = {                 # the TPU kernel body each CUDA kernel replaces
                    "none: pactpu/ops/bitalloc.py:458 (lax.while_loop)"),
     "cost_table": ("cost_table.cu",
                    "none: pactpu/codec/exact.py:106 (lax.map)"),
+    "reservoir_scan": ("reservoir_scan.cu",
+                       "none: pactpu/codec/engine.py:765 (lax.scan)"),
 }
 # the path whose launches each kernel's "launches" reports
 PATH_OF = {"extract_codes": "main", "water_fill": "main",
            "pack_payload": "main", "spread_maskers_up": "main",
            "huffman_walk": "device-parse", "spread_maskers": "aidan",
            "exact_scan": "exact", "closed_form": "alloc-closed_form",
-           "grant_fill": "alloc-const_mnr", "cost_table": "exact"}
+           "grant_fill": "alloc-const_mnr", "cost_table": "exact",
+           "reservoir_scan": "main"}
 # phase 11's bit rates: the default and one whose rows take the wide packer
 DIST_BPS = (2.27, 4.93)
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, and float32 operations/s outside
@@ -842,6 +864,54 @@ def launch_floor_ms(torch) -> float:
     return device_ms(torch, lambda: one.fill_(1.0))
 
 
+K11_EDGES = ("deposit-10", "deposit-11", "deposit-negative", "divisor-1",
+             "divisor-100", "all-invalid", "ragged-13", "mono",
+             "near-int32-limit", "deposit-at-limit", "1000-blocks")
+I32_MAX = 2 ** 31 - 1
+
+
+def k11_edge(name: str):
+    """Edge inputs of K11 reservoir_scan as numpy (savings i32[B, C],
+    leftover i32[B], valid bool[B], carry i32[2], divisor): a deposit of
+    exactly 10 and 11 and a negative one, divisors 1 and 100, a chunk of
+    invalid blocks only, 13 blocks (pactpu pads its scan to a multiple of
+    8; the kernel walks 32 a pass), mono savings, magnitudes that wrap in
+    int32 (and a deposit held at its limit), and 1,000 blocks."""
+    rng = np.random.default_rng(len(name))
+    i32 = lambda a: np.asarray(a, np.int32)  # noqa: E731
+    small = lambda shape: i32(rng.integers(-40, 60, shape))  # noqa: E731
+    if name in ("deposit-10", "deposit-11", "deposit-negative"):
+        d = {"deposit-10": 10, "deposit-11": 11, "deposit-negative": -37}
+        return (small((8, 2)), small(8), np.ones(8, bool),
+                i32([d[name], 5]), 3)
+    if name in ("divisor-1", "divisor-100"):
+        return (i32(rng.integers(-3000, 9000, (40, 2))),
+                i32(rng.integers(-200, 400, 40)), rng.random(40) < 0.9,
+                i32([500, -20]), 1 if name == "divisor-1" else 100)
+    if name == "all-invalid":
+        return (small((16, 2)), small(16), np.zeros(16, bool),
+                i32([1234, -56]), 100)
+    if name == "ragged-13":
+        return (small((13, 2)), small(13), rng.random(13) < 0.7,
+                i32([20, 1]), 7)
+    if name == "mono":
+        return (i32(rng.integers(-900, 2000, (24, 1))),
+                i32(rng.integers(-90, 90, 24)), np.ones(24, bool),
+                i32([0, 0]), 100)
+    if name == "near-int32-limit":
+        return (i32(rng.integers(-2 ** 31, 2 ** 31, (32, 2))),
+                i32(rng.integers(-2 ** 31, 2 ** 31, 32)),
+                rng.random(32) < 0.8, i32([I32_MAX - 3, -2 ** 31 + 2]), 2)
+    if name == "deposit-at-limit":
+        return (i32(np.full((8, 2), I32_MAX)), i32(np.full(8, I32_MAX)),
+                np.ones(8, bool), i32([I32_MAX, I32_MAX]), 1)
+    if name == "1000-blocks":
+        return (i32(rng.integers(-2000, 4000, (1000, 2))),
+                i32(rng.integers(-100, 300, 1000)), rng.random(1000) < 0.95,
+                i32([-5, 3]), 100)
+    raise KeyError(name)
+
+
 def k9_edge(name: str):
     """Edge inputs of K9 grant_fill as (total, level, n_lines,
     max_mant_bits, budget_cap): the budgets, ties and line counts of
@@ -1442,10 +1512,88 @@ def phase1(torch, dev_tables, pcm: np.ndarray, stream: bytes) -> dict:
         sfu_floor_ms=triples / (sms * 16 * clock * 1e6) * 1e3)
     phase1_alloc(torch, dev_tables, pcm, record, res, extra)
     phase1_bands_f64_exact(torch, pcm, record, res, extra)
+    phase1_reservoir(torch, pcm, record, extra)
     torch.cuda.synchronize()
     for name, r in res.items():
         say("1-kernel", name=name, **r, **extra[name])
     return res
+
+
+def measured_chunks(torch, pcm: np.ndarray, seed: int = 11):
+    """The reservoir measurement of pcm's encode (Engine.last_measure) cut
+    into the Engine's chunks as K11 takes them: [(savings i32[n, 2],
+    leftover i32[n], valid bool[n]), ...] on the device, the padded tail's
+    rows seeded garbage that valid turns off; and the file's blocks."""
+    from pactpu_torch import Engine
+    from pactpu_torch.codec import engine as E
+    eng = Engine(device=DEV)
+    eng.encode(pcm)
+    sav, left = eng.last_measure
+    b = sav.shape[0]
+    offs = E._offsets(E._chunk_sizes(b, E._pad_blocks(b)))
+    rng = np.random.default_rng(seed)
+    pad = offs[-1] - b
+    sav = np.concatenate([sav, rng.integers(-5000, 5000, (pad, 2))])
+    left = np.concatenate([left, rng.integers(-500, 500, pad)])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        a, np.int32)).to(DEV)
+    return [(t(sav[lo:hi]), t(left[lo:hi]),
+             torch.arange(hi - lo, device=DEV) < b - lo)
+            for lo, hi in zip(offs, offs[1:])], b, eng
+
+
+def phase1_reservoir(torch, pcm: np.ndarray, record, extra: dict) -> None:
+    """K11 bit for bit against its plain version on the measurements of
+    pcm's encode, chunk by chunk with its carry on the device (the extras
+    also against the host replay engine.reservoir_extras and the Engine's
+    own last_extras), and on k11_edge's inputs; timed on a full chunk
+    beside the launch floor."""
+    from pactpu_torch.codec import engine as E
+    from pactpu_torch.ops import kernels as K
+    chunks, b, eng = measured_chunks(torch, pcm)
+    div = eng.cfg.reservoir_withdraw_divisor
+    carry_k = carry_p = torch.zeros(2, dtype=torch.int32, device="cuda")
+    extras = []
+    for k, (sav, left, valid) in enumerate(chunks):
+        ek, carry_k = K.reservoir_scan(sav, left, valid, carry_k, div)
+        ep, carry_p = K.reservoir_scan_plain(sav, left, valid, carry_p, div)
+        check(torch.equal(ek.view(torch.int32), ep.view(torch.int32))
+              and torch.equal(carry_k, carry_p),
+              f"K11 differs from its plain version on chunk {k}")
+        extras.append(ek)
+    extras = torch.cat(extras).cpu().numpy()
+    sav_h = torch.cat([c[0] for c in chunks]).cpu().numpy()[:b]
+    left_h = torch.cat([c[1] for c in chunks]).cpu().numpy()[:b]
+    host, host_carry = E.reservoir_extras(sav_h, left_h, div)
+    check(np.array_equal(extras[:b], host.astype(np.float32))
+          and not extras[b:].any()
+          and tuple(carry_k.tolist()) == host_carry,
+          "K11 differs from the host replay of the reservoir")
+    check(np.array_equal(eng.last_extras, extras[:b]),
+          "the Engine's extras differ from K11's")
+    for name in K11_EDGES:
+        s, lf, v, c, d = (torch.from_numpy(np.asarray(a)).to("cuda")
+                          if isinstance(a, np.ndarray) else a
+                          for a in k11_edge(name))
+        got, want = K.reservoir_scan(s, lf, v, c, d), \
+            K.reservoir_scan_plain(s, lf, v, c, d)
+        check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+              and torch.equal(got[1], want[1]),
+              f"K11 differs from its plain version on the edge input {name}")
+    sav, left, valid = chunks[0]
+    zero = torch.zeros(2, dtype=torch.int32, device="cuda")
+    out = K.reservoir_scan(sav, left, valid, zero, div)
+    # operations: about 10 integer operations a step (the division's
+    # sequence counted as one)
+    record("reservoir_scan", 0.0,
+           lambda: K.reservoir_scan(sav, left, valid, zero, div),
+           lambda: K.reservoir_scan_plain(sav, left, valid, zero, div),
+           nbytes(sav, left, valid, zero, *out), 10 * sav.shape[0],
+           plain_runs=5)
+    extra["reservoir_scan"].update(
+        blocks=sav.shape[0], chunks=len(chunks),
+        launch_floor_ms=launch_floor_ms(torch),
+        ptxas=ptxas_of("reservoir_scan"))
 
 
 def ptxas_of(kernel: str) -> dict:
@@ -3303,6 +3451,224 @@ def phase12(torch, pcm: np.ndarray, long_pcm: np.ndarray,
     return launches
 
 
+def eager_encode(eng, pcm: np.ndarray) -> bytes:
+    """The eager stage chain of a .wak encode (the Engine before its
+    program layer): the analysis and both reservoir passes by the stage
+    functions chunk by chunk, launch by launch; the reservoir policy
+    replayed on the host (engine.reservoir_extras) over the downloaded
+    measurement; the final pass with the pack; the padded rows framed on
+    the host.  In cbr the measurement and the replay are skipped."""
+    import torch
+    from pactpu_torch.codec import engine as E
+    from pactpu_torch.codec.header import write_header
+    cfg = eng.cfg
+    b, sizes, frames = eng._frames(pcm, eng._analysis_batches)
+    dev = eng.consts()
+    offs = E._offsets(sizes)
+    analyses = E._recut([E.analyze(cfg, f, dev) for f in frames],
+                        [f.shape[0] for f in frames], offs)
+    extras = np.zeros(offs[-1], np.float32)
+    if eng.rate_mode == "reservoir":
+        meas = [E.finalize(cfg, a, torch.zeros(n, device=eng.device), dev,
+                           measure_only=True)
+                for a, n in zip(analyses, sizes)]
+        sav = torch.cat([m["savings"] for m in meas]).cpu().numpy()
+        left = torch.cat([m["leftover"] for m in meas]).cpu().numpy()
+        extras[:b] = E.reservoir_extras(sav[:b], left[:b],
+                                        cfg.reservoir_withdraw_divisor)[0]
+    ex = torch.from_numpy(extras).to(eng.device)
+    outs = [E.finalize(cfg, a, ex[lo:hi], dev, pack_words=E.PACK_WORDS)
+            for a, lo, hi in zip(analyses, offs, offs[1:])]
+    host = {k: torch.cat([o[k] for o in outs]).cpu().numpy()
+            for k in ("words", "nbits")}
+    host["words"] = host["words"].view(np.uint32)
+    return write_header(cfg, pcm.shape[0])[0] + eng.pack_payload(host, b)
+
+
+def eager_decode(eng, stream: bytes):
+    """The eager stage chain of a decode on eng's parse route: each
+    chunk's stage function launch by launch (Engine.decode with
+    eng.use_programs False).  Returns (sample_rate, pcm) as
+    Engine.decode."""
+    programmed, eng.use_programs = eng.use_programs, False
+    try:
+        return eng.decode(stream)
+    finally:
+        eng.use_programs = programmed
+
+
+def phase13(torch, make_engine, files, reps: int = 3,
+            buckets=None) -> dict:
+    """The program layer against the eager stage chain, in one run: for
+    the reservoir and the cbr mode, the files' serial encodes and decodes
+    by both parse routes and roundtrip_many (each stage a program replay:
+    the programs are built by a first pass, timed as capture) equal
+    eager_encode's bytes and eager_decode's samples; the reservoir
+    encode's dispatch half runs under set_sync_debug_mode("error");
+    serial and batch blocks/s of the programs and of the eager chain in
+    turns (reservoir); then a file of each of `buckets` blocks (None = every
+    tail bucket, phase13_buckets).  Returns the launches of the "programs"
+    path: the reservoir mode's serial encodes and decodes by both
+    routes."""
+    import hashlib
+    from pactpu_torch.codec import programs
+    from pactpu_torch.ops import kernels as K
+    cuda = DEV != "cpu"
+    blocks = sum(n_blocks(p) for p in files)
+    launches = None
+    for rate in ("reservoir", "cbr"):
+        gc.collect()        # the memory read below: this phase's own
+        if cuda:
+            torch.cuda.empty_cache()
+        eng = make_engine(rate_mode=rate)
+        eng_dev = make_engine(rate_mode=rate, decode_parse="device")
+        check(not cuda or (programs.encode_programs(eng)
+                           and programs.decode_programs(eng_dev)),
+              f"the {rate} Engine does not run its stages as programs")
+        t0 = time.perf_counter()
+        for pcm in files:                   # builds every program
+            s = eng.encode(pcm)
+            eng.decode(s)
+            eng_dev.decode(s)
+        eng.roundtrip_many(files)
+        sync(torch)
+        build_s = time.perf_counter() - t0
+        ref = [eager_encode(eng, pcm) for pcm in files]
+        ref_pcm = [eager_decode(eng, s)[1] for s in ref]
+        for s, want in zip(ref, ref_pcm):
+            check(np.array_equal(eager_decode(eng_dev, s)[1], want),
+                  "the eager chain's parse routes disagree")
+        sync(torch)
+        K.reset_launches()
+        streams = [eng.encode(pcm) for pcm in files]
+        outs = [eng.decode(s)[1] for s in streams]
+        outs_dev = [eng_dev.decode(s)[1] for s in streams]
+        sync(torch)
+        if rate == "reservoir":
+            launches = dict(K.LAUNCHES)
+        memory = ({k: getattr(torch.cuda, f"memory_{k}")() / 2 ** 20
+                   for k in ("reserved", "allocated")} if cuda else None)
+        batch, batch_streams = eng.roundtrip_many(files, return_streams=True)
+        for k, pcm in enumerate(files):
+            check(streams[k] == ref[k] == batch_streams[k],
+                  f"{rate}: the programmed stream of file {k} differs from "
+                  "the eager stage chain's")
+            check(np.array_equal(outs[k], ref_pcm[k])
+                  and np.array_equal(outs_dev[k], ref_pcm[k])
+                  and np.array_equal(batch[k][1], ref_pcm[k]),
+                  f"{rate}: the programmed decode of file {k} differs from "
+                  "the eager stage chain's")
+        replays = {stage: sum(p.replays for _, p in e.programs.items(stage))
+                   for e, stage in ((eng, "analyze"), (eng, "measure"),
+                                    (eng, "final"), (eng, "decode"),
+                                    (eng_dev, "decode_device_parse"))}
+        check(not cuda or all(n > 0 for stage, n in replays.items()
+                              if rate == "reservoir" or stage != "measure"),
+              f"{rate}: a stage never replayed its program: {replays}")
+        line = dict(rate=rate, blocks=blocks, files=len(files),
+                    build_s=build_s,
+                    capture_s=eng.programs.capture_s
+                    + eng_dev.programs.capture_s,
+                    captures=eng.programs.captures
+                    + eng_dev.programs.captures,
+                    programs={st: len(e.programs.items(st))
+                              for e, st in ((eng, "analyze"),
+                                            (eng, "measure"), (eng, "final"),
+                                            (eng, "decode"),
+                                            (eng_dev,
+                                             "decode_device_parse"))},
+                    replays=replays, memory_mb=memory,
+                    sha256=[hashlib.sha256(s).hexdigest() for s in streams])
+        if rate == "reservoir":
+            line.update(phase13_timing(torch, eng, files, ref, reps))
+            line.update(phase13_buckets(torch, eng, eng_dev, buckets))
+        say("13-programs", **line)
+        del eng, eng_dev                   # and their graphs' memory
+    check_launched(launches, ["extract_codes", "water_fill", "pack_payload",
+                              "spread_maskers_up", "huffman_walk",
+                              "reservoir_scan"], "the programs path")
+    return launches
+
+
+def phase13_buckets(torch, eng, eng_dev, buckets=None) -> dict:
+    """A file of each tail bucket's size (one chunk of that many blocks;
+    buckets: the sizes, None = every one of engine._TAIL_BUCKETS) encoded
+    and decoded by both parse routes, its bytes and samples held to the
+    eager chain's: every bucket's programs captured.  Returns the memory
+    reserved then and the programs built."""
+    from pactpu_torch.codec import engine as E
+    for blocks in buckets or E._TAIL_BUCKETS:
+        pcm = synth((blocks - 1) * 1024 / FS, 100 + blocks)
+        want = eager_encode(eng, pcm)
+        check(eng.encode(pcm) == want,
+              f"the {blocks}-block programmed stream differs from the "
+              "eager stage chain's")
+        want_pcm = eager_decode(eng, want)[1]
+        check(np.array_equal(eng.decode(want)[1], want_pcm)
+              and np.array_equal(eng_dev.decode(want)[1], want_pcm),
+              f"the {blocks}-block programmed decode differs from the "
+              "eager stage chain's")
+    sync(torch)
+    return dict(
+        buckets_memory_mb=({k: getattr(torch.cuda, f"memory_{k}")() / 2 ** 20
+                            for k in ("reserved", "allocated")}
+                           if DEV != "cpu" else None),
+        buckets_programs=sum(len(e.programs.items(st)) for e, st in (
+            (eng, "analyze"), (eng, "measure"), (eng, "final"),
+            (eng, "decode"), (eng_dev, "decode_device_parse"))))
+
+
+def phase13_timing(torch, eng, files, ref, reps: int) -> dict:
+    """The reservoir encode's dispatch half (Engine._encode_dispatch) under
+    torch.cuda.set_sync_debug_mode("error") on every file, the payload
+    then downloaded and checked against ref; and serial and batch
+    blocks/s of the programmed Engine and of the eager chain, in turns
+    (programs, eager, eager, programs) a rep."""
+    from pactpu_torch.codec.header import write_header
+    blocks = sum(n_blocks(p) for p in files)
+    for k, pcm in enumerate(files):
+        up = eng._upload_pcm(pcm, eng._analysis_batches)
+        sync(torch)
+        if DEV != "cpu":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            st = eng._encode_dispatch(up)
+        finally:
+            if DEV != "cpu":
+                torch.cuda.set_sync_debug_mode(0)
+        header = write_header(eng.cfg, pcm.shape[0])[0]
+        check(header + eng._finish_encode(st) == ref[k],
+              f"the dispatch under sync debug gave other bytes (file {k})")
+
+    def serial_programs():
+        for pcm in files:
+            eng.decode(eng.encode(pcm))
+
+    def serial_eager():
+        for pcm in files:
+            eager_decode(eng, eager_encode(eng, pcm))
+
+    def batch_eager():
+        streams = [eager_encode(eng, pcm) for pcm in files]
+        [eager_decode(eng, s) for s in streams]
+
+    times = {k: [] for k in ("serial_programs", "serial_eager",
+                             "batch_programs", "batch_eager")}
+    fns = {"serial_programs": serial_programs, "serial_eager": serial_eager,
+           "batch_programs": lambda: eng.roundtrip_many(files),
+           "batch_eager": batch_eager}
+    for _ in range(reps):
+        for kind in ("serial", "batch"):
+            for who in ("programs", "eager", "eager", "programs"):
+                key = f"{kind}_{who}"
+                t0 = time.perf_counter()
+                fns[key]()
+                sync(torch)
+                times[key].append(time.perf_counter() - t0)
+    return {f"{k}_blocks_per_s": [blocks / t for t in v]
+            for k, v in times.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3335,7 +3701,8 @@ def main() -> int:
                "stream": phase10(torch, make, files[-1], files[:3]),
                "distributed": phase11(torch, make, files[-1],
                                       synth(600.0, 5)),
-               "surface": phase12(torch, files[0], files[-1])}
+               "surface": phase12(torch, files[0], files[-1]),
+               "programs": phase13(torch, make, files)}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda",
              source=f"pactpu_torch/csrc/{REPLACES[name][0]}",

@@ -18,12 +18,13 @@ modes
 
 - "cbr":       every block allocates from the flat per-block budget.
 - "reservoir": two passes.  Pass 1 measures per-channel Huffman savings
-               and allocation leftovers with no extra bits; the host
-               replays the reference reservoir policy over them (deposit
-               savings, withdraw 1/100 per block, carry the leftover,
-               reference codec/Huffman.py:353-371, codec/codec.py:229);
-               pass 2 re-encodes with those extra bits.  The analysis runs
-               once and feeds both passes.
+               and allocation leftovers with no extra bits; kernel K11
+               replays the reference reservoir policy over them on the
+               device (deposit savings, withdraw 1/100 per block, carry
+               the leftover, reference codec/Huffman.py:353-371,
+               codec/codec.py:229), its carry chained from chunk to chunk
+               there; pass 2 re-encodes with those extra bits.  The
+               analysis runs once and feeds both passes.
 - "exact":     the reference's serial reservoir trajectory itself: cost
                tables of every allocation, then kernel K7 walks every
                block (pactpu_torch.codec.exact), then one final pass.  With
@@ -51,6 +52,14 @@ reference's float64 arithmetic where it decides an integer
 (pactpu_torch.ops.quantize); `fmt="pac"` encodes in float32 whatever the
 precision, as pactpu does.
 
+On the card each stage of a chunk (the analysis, the measurement pass
+with K11, the final pass with the pack and the dense compaction, and the
+decode chunk of either parse route) runs as a CUDA-graph replay, captured
+once a shape (pactpu_torch.codec.programs; the configurations that stay
+launch by launch are listed there).  On the CPU, or with
+`Engine.use_programs` set to False, the stage functions run directly,
+launch by launch.
+
 Float32 products run in full float32: the engine turns TF32 off
 (`torch.backends.cuda.matmul.allow_tf32`, `torch.backends.cudnn.allow_tf32`)
 and sets the float32 matmul precision to "highest", as the JAX reference
@@ -71,7 +80,7 @@ import torch.nn.functional as F
 from numpy.lib.stride_tricks import sliding_window_view
 
 from pactpu_torch import native
-from pactpu_torch.codec import exact
+from pactpu_torch.codec import exact, programs
 from pactpu_torch.codec.header import read_header, write_header
 from pactpu_torch.ops import bitalloc, bitpack, huffman, kernels, psycho
 from pactpu_torch.ops import huffman_decode as hd
@@ -97,6 +106,8 @@ _WIDE_WORDS = (384, PACK_WORDS_MAX)
 # mantissa word widths of the decoder's repacked rows
 _WORD_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512)
 _TAIL_BUCKETS = (16, 32, 64, 96, 128, 192, 256, 384, 512)
+# the analysis dict's tensors, in the order the programs take them
+_ANALYSIS_KEYS = ("mixed", "smr", "lrms", "overall")
 # raw payload word widths of the device-parse route's rows
 _PAYLOAD_WORD_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 
@@ -578,7 +589,9 @@ def reservoir_extras(savings: np.ndarray, leftover: np.ndarray,
     (codec/codec.py:229,258-260).  savings: int[B, C]; leftover: int[B];
     (deposit, extra): the carry from the blocks before (a stream's).
     Returns (extraBits of channel 0 per block int64[B], final (deposit,
-    extra) carry)."""
+    extra) carry).  The Engine runs the same policy on the device (kernel
+    K11, kernels.reservoir_scan); the cluster's ranges replay it here, as
+    pactpu's do."""
     b = savings.shape[0]
     extras = np.zeros(b, np.int64)
     for t in range(b):
@@ -653,7 +666,9 @@ class Engine:
     device_pack=False packs the payload on the host (the same bytes, no
     K3); debug_checks=True checks every encode pass as pactpu does
     (DebugCheckError).  last_savings, last_measure and last_extras read
-    the last encode's statistics."""
+    the last encode's statistics.  use_programs (True) lets the stages run
+    as CUDA-graph replays on the card (pactpu_torch.codec.programs); False
+    runs them launch by launch, the same bytes and samples."""
 
     def __init__(self, cfg: Optional[CodecConfig] = None,
                  rate_mode: str = "reservoir", fmt: str = "wak",
@@ -675,6 +690,11 @@ class Engine:
             raise ValueError(f"PACTPU_DECODE_PARSE={decode_parse!r}: "
                              "expected auto, device or host")
         self.device = resolve_device(device)
+        # the chunk programs of the card (programs.encode_programs and
+        # decode_programs say which configurations take them); with
+        # use_programs False every stage runs launch by launch
+        self.programs = programs.Programs(self.device)
+        self.use_programs = True
         self.rate_mode = rate_mode
         self.cfg = cfg or CodecConfig()
         self.fmt = fmt
@@ -705,6 +725,7 @@ class Engine:
         _check_config(cfg, self.rate_mode)
         self._cfg = cfg
         self._dev = {}
+        self.programs.clear()
 
     def consts(self, precision: Optional[str] = None,
                cfg: Optional[CodecConfig] = None) -> dict:
@@ -760,14 +781,40 @@ class Engine:
     def _chunk(self, b: int) -> int:
         return self.chunk_blocks or _pad_blocks(b)
 
+    def _run_stage(self, stage: str, programmed: bool, blocks: int,
+                   key: tuple, fn, args):
+        """fn(*args), one stage of a chunk of `blocks` blocks: a replay of
+        the stage's program where `programmed` (programs.encode_programs or
+        decode_programs) and the chunk has the size of one of _TAIL_BUCKETS
+        (a stream's pieces of other sizes, and a batch past the default
+        chunking, run directly), else fn on args uploaded to the device.
+        key: what besides the inputs' shapes decides the stage (fn reads
+        nothing else); args: tensors or host arrays."""
+        if programmed and blocks in _TAIL_BUCKETS:
+            host = [torch.from_numpy(np.ascontiguousarray(a))
+                    if isinstance(a, np.ndarray) else a for a in args]
+            return self.programs.run(stage, (self.precision, *key), fn, host)
+        return fn(*(self._upload(a) for a in args))
+
+    def _device_carry(self, carry) -> torch.Tensor:
+        """A (bitDeposit, extraBits) carry as an i32[2] tensor on the
+        device: a tensor as it is, host ints written by fills (a host value
+        copied up would wait for the device)."""
+        if torch.is_tensor(carry):
+            return carry.to(device=self.device, dtype=torch.int32)
+        out = torch.full((2,), int(carry[0]), dtype=torch.int32,
+                         device=self.device)
+        out[1].fill_(int(carry[1]))
+        return out
+
     # -- encode ----------------------------------------------------------
 
-    def _frames(self, pcm: np.ndarray, batches):
-        """Upload the PCM once and cut it into batches of overlapped frames.
-        Returns (b, sizes, frames): the file's block count (the flush block
-        included), the chunks' block counts and the frames i16[n, C, 2N]
-        on the device of each batch of batches(b), a list of block counts
-        (zero frames past the file)."""
+    def _upload_pcm(self, pcm: np.ndarray, batches) -> dict:
+        """Upload the PCM once, framed for batches(b), a list of block
+        counts (zero frames past the file).  Returns dict(b: the file's
+        block count, the flush block included; sizes: the chunks' block
+        counts; offs: the batches' block offsets; pcm: i16[C, (n + 1) N]
+        on the device)."""
         half = self.cfg.n_mdct_lines
         c = self.cfg.n_channels
         if pcm.ndim != 2 or pcm.shape[1] != c:
@@ -779,14 +826,33 @@ class Engine:
         glob = np.zeros((c, (b_pad + 1) * half), np.int16)
         n = min(pcm.shape[0], b_pad * half)
         glob[:, half:half + n] = pcm[:n].T
-        pcm_dev = torch.from_numpy(glob).to(self.device)
-        return b, sizes, [_overlap_frames(
-            pcm_dev[:, offs[k] * half:(offs[k + 1] + 1) * half], half)
+        return dict(b=b, sizes=sizes, offs=offs,
+                    pcm=torch.from_numpy(glob).to(self.device))
+
+    def _frames(self, pcm: np.ndarray, batches):
+        """Upload the PCM once and cut it into batches of overlapped frames.
+        Returns (b, sizes, frames): as _upload_pcm, with the frames
+        i16[n, C, 2N] on the device of each batch of batches(b)."""
+        up = self._upload_pcm(pcm, batches)
+        half, offs = self.cfg.n_mdct_lines, up["offs"]
+        return up["b"], up["sizes"], [_overlap_frames(
+            up["pcm"][:, offs[k] * half:(offs[k + 1] + 1) * half], half)
             for k in range(len(offs) - 1)]
+
+    def _analysis_batches(self, b: int) -> list:
+        """The batches the encode's analysis runs in (_analyze)."""
+        own = _default_batches(b)
+        rest = sum(_chunk_sizes(b, self._chunk(b))) - sum(own)
+        return own + ([rest] if rest > 0 else [])
 
     def _analyze(self, pcm: np.ndarray):
         """Upload the PCM and analyse it.  Returns (b, sizes, analyses):
-        as _frames, with the analysis dict of each chunk.
+        as _frames, with the analysis dict of each chunk."""
+        up = self._upload_pcm(pcm, self._analysis_batches)
+        return up["b"], up["sizes"], self._analyze_uploaded(up)
+
+    def _analyze_uploaded(self, up: dict) -> list:
+        """The analysis dict of each chunk of an _upload_pcm result.
 
         The analysis runs in the batches of the default chunking, whatever
         chunk_blocks is, and the chunks are cut from them: cuBLAS and cuFFT
@@ -795,34 +861,48 @@ class Engine:
         exact mode's stream.  Blocks past the default chunking's padding,
         which a larger chunk size adds, are all zero frames: they take a
         batch of their own."""
-        def batches(b):
-            own = _default_batches(b)
-            rest = sum(_chunk_sizes(b, self._chunk(b))) - sum(own)
-            return own + ([rest] if rest > 0 else [])
+        cfg, dev = self.cfg, self.consts()
+        half, offs = cfg.n_mdct_lines, up["offs"]
+        programmed = programs.encode_programs(self)
 
-        b, sizes, frames = self._frames(pcm, batches)
-        dev = self.consts()
-        parts = [analyze(self.cfg, f, dev) for f in frames]
-        return b, sizes, _recut(parts, [f.shape[0] for f in frames],
-                                _offsets(sizes))
+        def stage(x):
+            return analyze(cfg, _overlap_frames(x, half), dev)
+
+        parts = [self._run_stage(
+            "analyze", programmed, offs[k + 1] - offs[k], (cfg,), stage,
+            (up["pcm"][:, offs[k] * half:(offs[k + 1] + 1) * half],))
+            for k in range(len(offs) - 1)]
+        return _recut(parts, [z - a for a, z in zip(offs, offs[1:])],
+                      _offsets(up["sizes"]))
 
     def _encode_chunks(self, pcm: np.ndarray) -> dict:
         """Upload the PCM once, run the analysis (_analyze) and the rate
         control (_rate_control) chunk by chunk, and stage the dense payload
         download."""
-        b, sizes, analyses = self._analyze(pcm)
-        return self._rate_control(analyses, b, sizes)[0]
+        return self._encode_dispatch(
+            self._upload_pcm(pcm, self._analysis_batches))
+
+    def _encode_dispatch(self, up: dict) -> dict:
+        """The device half of an encode from its uploaded PCM (an
+        _upload_pcm result): every chunk's analysis, rate control, final
+        pass and compaction queued, nothing waited for.  In the reservoir
+        and cbr modes on the card no host sync and no device-to-host copy
+        happens here."""
+        return self._rate_control(self._analyze_uploaded(up), up["b"],
+                                  up["sizes"])[0]
 
     def _rate_control(self, analyses: list, b: int, sizes: list,
                       carry=(0, 0)):
         """Both reservoir passes, or the exact scan, over the analysis
         dicts of consecutive chunks of sizes[k] blocks (the first b real),
-        from the (bitDeposit, extraBits) carry of the blocks before them;
-        then the final pass and the staged download (_stage_payload).  The
-        only host round trip is the pass-1 measurement the reservoir replay
-        needs; the exact scan chains its carry on the device.  Returns
-        (staged, carry'): carry' as host ints, in the exact mode an i32[2]
-        device tensor (read it after the download), in cbr unchanged."""
+        from the (bitDeposit, extraBits) carry of the blocks before them
+        (host ints or an i32[2] device tensor); then the final pass and the
+        staged download (_stage_payload).  The reservoir chains the
+        measurement pass of each chunk into kernel K11 (kernels.
+        reservoir_scan) with the carry on the device, as the exact scan
+        chains K7: no host round trip.  Returns (staged, carry'): carry'
+        an i32[2] device tensor (read it after the download), in cbr the
+        carry unchanged."""
         cfg = self.cfg
         offs = _offsets(sizes)
         dev = self.consts()
@@ -831,50 +911,75 @@ class Engine:
 
         if self.rate_mode == "exact":
             extras_chunks, carry = exact.exact_extras_chunked(
-                cfg, analyses, dev, b, torch.tensor(
-                    carry, dtype=torch.int32, device=self.device))
+                cfg, analyses, dev, b, self._device_carry(carry))
             self._last["extras"] = torch.cat(extras_chunks)
             return self._stage_payload(analyses, extras_chunks, b,
                                        sizes), carry
-        extras = np.zeros(offs[-1], np.float32)
-        if self.rate_mode == "reservoir":
-            zero = [torch.zeros(s, device=self.device) for s in sizes]
-            meas = [finalize(cfg, a, z, dev, measure_only=True)
-                    for a, z in zip(analyses, zero)]
-            sav = torch.cat([m["savings"] for m in meas]).cpu().numpy()
-            left = torch.cat([m["leftover"] for m in meas]).cpu().numpy()
-            self._last.update(measure_savings=sav[:b],
-                              measure_leftover=left[:b])
-            # padded tail blocks take no part: the policy runs over the
-            # file's b blocks and their extras stay 0
-            extras[:b], carry = reservoir_extras(
-                sav[:b], left[:b], cfg.reservoir_withdraw_divisor, *carry)
-        self._last["extras"] = extras[:b]
-        extras_dev = torch.from_numpy(extras).to(self.device)
-        extras_chunks = [extras_dev[offs[k]:offs[k + 1]]
-                         for k in range(len(sizes))]
+        if self.rate_mode == "cbr":
+            extras_chunks = [torch.zeros(s, device=self.device)
+                             for s in sizes]
+        else:
+            programmed = programs.encode_programs(self)
+            divisor = cfg.reservoir_withdraw_divisor
+            carry = self._device_carry(carry)
+
+            def stage(mixed, smr, lrms, overall, carry, valid):
+                m = finalize(cfg, dict(mixed=mixed, smr=smr, lrms=lrms,
+                                       overall=overall),
+                             torch.zeros(mixed.shape[0],
+                                         device=mixed.device),
+                             dev, measure_only=True)
+                ex, carry = kernels.reservoir_scan(
+                    m["savings"], m["leftover"], valid, carry, divisor)
+                return m["savings"], m["leftover"], ex, carry
+
+            extras_chunks, meas = [], []
+            for k, a in enumerate(analyses):
+                # padded tail blocks take no part: their extras stay 0
+                valid = (torch.arange(sizes[k], device=self.device)
+                         < max(0, b - offs[k]))
+                sav, left, ex, carry = self._run_stage(
+                    "measure", programmed, sizes[k], (cfg,), stage,
+                    (*(a[key] for key in _ANALYSIS_KEYS), carry, valid))
+                extras_chunks.append(ex)
+                meas.append((sav, left))
+            self._last.update(
+                measure_savings=torch.cat([m[0] for m in meas]),
+                measure_leftover=torch.cat([m[1] for m in meas]))
+        self._last["extras"] = torch.cat(extras_chunks)
         return self._stage_payload(analyses, extras_chunks, b, sizes), carry
 
     def _stage_payload(self, analyses, extras_chunks, b: int,
                        sizes: list) -> dict:
         """The final pass of every chunk with its extra bits (Engine(
-        debug_checks=True) checks it here), and the staged download: the
-        dense payload rows (device packing), or the fields the host packer
-        takes (device_pack=False)."""
+        debug_checks=True) checks it here), and the staged download: each
+        chunk's payload rows compacted by their word counts (device
+        packing, `dense`), or the fields the host packer takes
+        (device_pack=False)."""
         cfg, dev = self.cfg, self.consts()
+        c = cfg.n_channels
         pack_words = PACK_WORDS if self.device_pack else 0
-        outs = [finalize(cfg, a, ex, dev, pack_words=pack_words)
-                for a, ex in zip(analyses, extras_chunks)]
+        programmed = programs.encode_programs(self)
+
+        def stage(mixed, smr, lrms, overall, extras):
+            out = finalize(cfg, dict(mixed=mixed, smr=smr, lrms=lrms,
+                                     overall=overall), extras, dev,
+                           pack_words=pack_words)
+            if pack_words:
+                out["dense"] = bitpack.compact_rows(
+                    out["words"], out["nbits"],
+                    mixed.shape[0] * c * PACK_DENSE_WORDS)
+            return out
+
+        outs = [self._run_stage("final", programmed, size, (cfg, pack_words),
+                                stage, (*(a[k] for k in _ANALYSIS_KEYS), ex))
+                for a, ex, size in zip(analyses, extras_chunks, sizes)]
         if self.debug_checks:
             _debug_check_encode(analyses, outs, exact.max_mant(cfg), sizes)
         st = dict(outs=outs, b=b, analyses=analyses, extras=extras_chunks,
                   sizes=sizes)
-        if not self.device_pack:
-            return st
-        st["dense"] = bitpack.compact_rows(
-            torch.cat([o["words"] for o in outs]),
-            torch.cat([o["nbits"] for o in outs]),
-            sum(sizes) * cfg.n_channels * PACK_DENSE_WORDS)
+        if self.device_pack:
+            st["dense"] = [o.pop("dense") for o in outs]
         return st
 
     def _host_pack(self, st: dict) -> bytes:
@@ -910,12 +1015,12 @@ class Engine:
             np.asarray(out["lrms"][:b], np.int32), n_channels=c)
 
     def _finish_encode(self, st: dict) -> bytes:
-        """Blocking half of an encode: ONE download of the dense payload
-        (rows compacted by their word counts, nbits appended), then host
-        framing (or, with device_pack=False, _host_pack).  Fallbacks: a
-        chunk whose rows overflow PACK_WORDS is re-finalized with a wider
-        packer; a dense total past its cap downloads the padded rows
-        instead."""
+        """Blocking half of an encode: ONE download of every chunk's dense
+        payload (rows compacted by their word counts, nbits appended), then
+        host framing (or, with device_pack=False, _host_pack).  Fallbacks:
+        a chunk whose rows overflow PACK_WORDS is re-finalized with a wider
+        packer, launch by launch; a chunk whose dense total passes its cap
+        downloads its padded rows instead."""
         cfg = self.cfg
         c = cfg.n_channels
         outs, b, sizes = st["outs"], st["b"], st["sizes"]
@@ -923,26 +1028,30 @@ class Engine:
         if not self.device_pack:
             return self._host_pack(st)
         width = outs[0]["words"].shape[1]
-        row_offs = _offsets(sizes, scale=c)
-        cap = row_offs[-1] * PACK_DENSE_WORDS
-        dn = _host_u32(st["dense"])
-        nbits_all = dn[cap:].astype(np.int32)
-        counts = np.minimum((nbits_all.astype(np.int64) + 31) // 32, width)
-        offsets = np.concatenate([[0], np.cumsum(counts[:-1])]).astype(
-            np.int32)
-        use_dense = int(counts.sum()) <= cap
-        if use_dense:
-            flat = dn[:cap]
-        else:
-            words_all = _host_u32(torch.cat([o["words"] for o in outs]))
+        dn = _host_u32(torch.cat(st["dense"]))
+        chunks, pos = [], 0
+        for size in sizes:
+            rows = size * c
+            cap = rows * PACK_DENSE_WORDS
+            nbits = dn[pos + cap:pos + cap + rows].astype(np.int32)
+            counts = np.minimum((nbits.astype(np.int64) + 31) // 32, width)
+            flat = dn[pos:pos + cap] if int(counts.sum()) <= cap else None
+            chunks.append((flat, nbits, counts))
+            pos += cap + rows
+        padded = [k for k, (flat, _, _) in enumerate(chunks)
+                  if flat is None and sum(sizes[:k]) < b]
+        if padded:
+            words = _host_u32(torch.cat([outs[k]["words"] for k in padded]))
+            padded = dict(zip(padded, np.split(
+                words, np.cumsum([sizes[k] * c for k in padded])[:-1])))
         parts = []
         done = 0
         for k, (a, ex) in enumerate(zip(st["analyses"], st["extras"])):
             nb = min(sizes[k], b - done)
             if nb <= 0:
                 break
-            rows = slice(row_offs[k], row_offs[k] + c * nb)
-            nb_rows = nbits_all[rows]
+            flat, nbits, counts = chunks[k]
+            nb_rows = nbits[:c * nb]
             need = -(-int(nb_rows.max(initial=0)) // 32)
             if need > width:
                 wide = next((w for w in _WIDE_WORDS if w >= need), None)
@@ -953,11 +1062,13 @@ class Engine:
                 parts.append(native.assemble_rows(
                     _host_u32(wout["words"][:c * nb]),
                     wout["nbits"][:c * nb].cpu().numpy()))
-            elif use_dense:
+            elif flat is not None:
+                offsets = (np.cumsum(counts) - counts).astype(np.int32)
                 parts.append(native.assemble_rows_flat(
-                    flat, offsets[rows], nb_rows))
+                    flat, offsets[:c * nb], nb_rows))
             else:
-                parts.append(native.assemble_rows(words_all[rows], nb_rows))
+                parts.append(native.assemble_rows(padded[k][:c * nb],
+                                                  nb_rows))
             done += nb
         return b"".join(parts)
 
@@ -1114,8 +1225,9 @@ class Engine:
         """Host half of a decode: read the header and stage the payload by
         the engine's parse route.  Returns dict(cfg, num_samples, b, run,
         chunk_args): `run(*chunk_args[k], carry)` uploads chunk k and
-        queues its decode, returning (pcm i16[B, C, N], carry', bad
-        bool[C B] or None)."""
+        queues its decode (a program replay on the card where
+        programs.decode_programs says so), returning (pcm i16[B, C, N],
+        carry', bad bool[C B] or None)."""
         cfg, num_samples, off = read_header(data)
         _check_config(cfg)
         if self.decode_parse == "device":
@@ -1163,11 +1275,17 @@ class Engine:
                                (0, w_bucket - words.shape[1])))
         nbits = np.pad(nbits, (0, offs[-1] - rows))
         dev = self.consts(cfg=cfg)
+        programmed = programs.decode_programs(self)
+
+        def stage(words_k, nbits_k, carry):
+            return payload_decode_chunk(cfg, words_k, nbits_k, carry, dev,
+                                        lut)
 
         def run(words_k, nbits_k, carry):
-            return payload_decode_chunk(
-                cfg, self._upload(words_k), self._upload(nbits_k), carry,
-                dev, lut)
+            return self._run_stage(
+                "decode_device_parse", programmed, words_k.shape[0] // c,
+                (replace(cfg, window=self.cfg.window),), stage,
+                (words_k, nbits_k, carry))
 
         words = words.view(np.int32)
         return dict(b=b, run=run, chunk_args=[
@@ -1214,17 +1332,22 @@ class Engine:
             words = [rows_all[offs[k] * c:offs[k + 1] * c]
                      for k in range(len(sizes))]
         dev = self.consts(cfg=cfg)
-        up = self._upload
+        programmed = programs.decode_programs(self)
 
-        def run(ba_k, sf_k, words_k, overall_k, lrms_k, carry):
-            ba_k, words_k = up(ba_k), up(words_k)
+        def stage(ba_k, sf_k, words_k, overall_k, lrms_k, carry):
             if flat:
                 words_k = expand_flat(
                     words_k, ba_k.reshape(-1, ba_k.shape[-1]).to(
                         torch.int32), n_words, dev["lay"])
-            return (*decode_chunk(cfg, ba_k, up(sf_k), words_k,
-                                  up(overall_k), up(lrms_k), carry, dev),
-                    None)
+            return decode_chunk(cfg, ba_k, sf_k, words_k, overall_k, lrms_k,
+                                carry, dev)
+
+        def run(ba_k, sf_k, words_k, overall_k, lrms_k, carry):
+            return (*self._run_stage(
+                "decode", programmed, ba_k.shape[0],
+                (replace(cfg, window=self.cfg.window), n_words, flat),
+                stage, (ba_k, sf_k, words_k, overall_k, lrms_k, carry)),
+                None)
 
         return dict(b=b, run=run, chunk_args=[
             (ba[offs[k]:offs[k + 1]], sf[offs[k]:offs[k + 1]],

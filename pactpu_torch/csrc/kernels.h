@@ -155,4 +155,14 @@ int pactpu_cost_table_packed_f64(const double* mixed, const int32_t* n_lines,
                                  int n_scale_bits, int max_mant,
                                  cudaStream_t stream);
 
+// K11: the reservoir policy over a chunk's blocks: savings [blocks,
+// channels] summed a block (int32, wrapping), leftover and valid (0/1)
+// [blocks], from carry_in (deposit, extra) to carry_out; extras [blocks] =
+// each block's channel-0 extra bits as float32, 0 where valid is 0
+// (divisor > 0).
+int pactpu_reservoir_scan(const int32_t* savings, const int32_t* leftover,
+                          const uint8_t* valid, const int32_t* carry_in,
+                          int32_t* carry_out, float* extras, int blocks,
+                          int channels, int divisor, cudaStream_t stream);
+
 }  // extern "C"

@@ -104,7 +104,8 @@ def plan_dict(plan, device) -> dict:
                 g_weights=t(g_weights), seg=t(seg))
 
 
-@lru_cache(maxsize=8)
+# unbounded: a captured CUDA graph reads it by address (codec/programs.py)
+@lru_cache(maxsize=None)
 def _plan_tensors(n_lines: tuple, n_scale_bits: int, n_mant_size_bits: int,
                   n_table_id_bits: int, device: str) -> dict:
     """The pack plan as device tensors (built once per layout and device)."""
@@ -117,7 +118,8 @@ def _plan_tensors(n_lines: tuple, n_scale_bits: int, n_mant_size_bits: int,
 _PERM_LIMIT, _BAND_LIMIT, _START_LIMIT = 1 << 23, 1 << 10, 1 << 15
 
 
-@lru_cache(maxsize=8)
+# unbounded: a captured CUDA graph reads it by address (codec/programs.py)
+@lru_cache(maxsize=None)
 def device_plan(n_lines: tuple, n_scale_bits: int, n_mant_size_bits: int,
                 n_table_id_bits: int, device: str) -> tuple:
     """_pack_plan packed for kernels.pack_payload, built once per layout

@@ -1,5 +1,5 @@
-"""The port's ten hand-written Hopper kernels, their wrappers, their plain
-PyTorch versions and their launch counts.
+"""The port's eleven hand-written Hopper kernels, their wrappers, their
+plain PyTorch versions and their launch counts.
 
 | kernel            | replaces (in pactpu/)                 | source (csrc/)   |
 |-------------------|---------------------------------------|------------------|
@@ -14,6 +14,7 @@ PyTorch versions and their launch counts.
 | closed_form       | ops/bitalloc.py:241, a lax.while_loop | closed_form.cu   |
 | grant_fill        | ops/bitalloc.py:458, a lax.while_loop | grant_fill.cu    |
 | cost_table        | codec/exact.py:106, a lax.map         | cost_table.cu    |
+| reservoir_scan    | codec/engine.py:765, a lax.scan       | reservoir_scan.cu |
 
 water_fill, spread_maskers_up, spread_maskers, exact_scan, closed_form and
 cost_table also have a float64 form (a second C function of the same
@@ -37,6 +38,8 @@ other.  u32 bit patterns travel as int32 tensors.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import math
@@ -57,7 +60,8 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("extract_codes.cu", "water_fill.cu", "pack_words.cu",
            "spread_up.cu", "huffman_walk.cu", "spread.cu", "exact_scan.cu",
-           "closed_form.cu", "grant_fill.cu", "cost_table.cu")
+           "closed_form.cu", "grant_fill.cu", "cost_table.cu",
+           "reservoir_scan.cu")
 # headers the sources include (a change rebuilds the library)
 HEADERS = ("kernels.h", "water_fill_step.cuh")
 LIB_PATH = os.path.join(BUILD_DIR, "libpactpu_kernels.so")
@@ -71,7 +75,7 @@ LAUNCHES = {"extract_codes": 0, "water_fill": 0, "pack_words": 0,
             "pack_payload": 0,
             "spread_maskers_up": 0, "huffman_walk": 0, "spread_maskers": 0,
             "exact_scan": 0, "closed_form": 0, "grant_fill": 0,
-            "cost_table": 0}
+            "cost_table": 0, "reservoir_scan": 0}
 
 # root peek bits of the Huffman walk's two-level LUT (huffman_walk.cu
 # carries the same constant)
@@ -107,6 +111,7 @@ _C_FUNCS = {
     "closed_form": ("pactpu_closed_form", [_P] * 4 + [_I] * 3 + [_P]),
     "grant_fill": ("pactpu_grant_fill", [_P] * 4 + [_I] * 4 + [_P]),
     "cost_table": ("pactpu_cost_table_packed", _COST_ARGS),
+    "reservoir_scan": ("pactpu_reservoir_scan", [_P] * 6 + [_I] * 3 + [_P]),
 }
 # the float64 forms, by the kernel they count under
 _C_FUNCS_F64 = {
@@ -122,11 +127,31 @@ _FLOATS = (torch.float32, torch.float64)
 
 _lock = threading.Lock()
 _lib = None
+# the launches of a thread that captures a CUDA graph (captured_launches)
+_capturing = threading.local()
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Within: this thread's launches are counted into the Counter yielded,
+    not into LAUNCHES (a CUDA graph capture launches nothing; its replays
+    add them, codec/programs.py).  Other threads count into LAUNCHES as
+    before."""
+    _capturing.counts = counts = collections.Counter()
+    try:
+        yield counts
+    finally:
+        _capturing.counts = None
+
+
+def _count(name: str) -> None:
+    counts = getattr(_capturing, "counts", None)
+    (LAUNCHES if counts is None else counts)[name] += 1
 
 
 def _nvcc() -> str:
@@ -254,7 +279,7 @@ def _launch(name: str, device: torch.device, *args,
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
-    LAUNCHES[name] += 1
+    _count(name)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -626,7 +651,8 @@ def huffman_walk(words: torch.Tensor, lut: dict, n_lines,
     return code, basf, soff, misc
 
 
-@functools.lru_cache(maxsize=16)
+# unbounded: a captured CUDA graph reads it by address (codec/programs.py)
+@functools.lru_cache(maxsize=None)
 def _band_tensor(n_lines: tuple, device: torch.device) -> torch.Tensor:
     """The band layout's line counts as an int32 tensor on the device (K5
     stages it in shared memory), uploaded once a layout and device."""
@@ -1418,7 +1444,8 @@ def _cost_check(mixed, lay, tab_lens, esc_len) -> None:
         raise ValueError("cost_table: table shapes disagree")
 
 
-@functools.lru_cache(maxsize=16)
+# unbounded: a captured CUDA graph reads it by address (codec/programs.py)
+@functools.lru_cache(maxsize=None)
 def _exp2_ks(device: torch.device, dtype: torch.dtype, largest: int,
              max_mant_bits: int) -> torch.Tensor:
     """quantize.exp2i(k) for k in [-largest - 1, largest + max_mant_bits]
@@ -1552,3 +1579,79 @@ def cost_table_plain(mixed, lay, tab_lens, esc_len, n_scale_bits: int,
         sums = run[..., hi] - run[..., lo]                # [T, B, C, bands]
         out[:, :, :, a] = sums.permute(1, 2, 3, 0)
     return out
+
+
+# -- K11 reservoir_scan ------------------------------------------------------
+
+def _wrap32(v: int) -> int:
+    """v modulo 2^32 as a signed 32-bit value."""
+    return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _reservoir_check(savings, leftover, valid, carry, divisor):
+    """The checked arguments of reservoir_scan, valid as a bool tensor."""
+    dev = savings.device
+    if not torch.is_tensor(valid):
+        valid = torch.arange(savings.shape[0], device=dev) < int(valid)
+    _check("savings", savings, torch.int32, 2, dev)
+    _check("leftover", leftover, torch.int32, 1, dev)
+    _check("valid", valid, torch.bool, 1, dev)
+    _check("carry", carry, torch.int32, 1, dev)
+    b = savings.shape[0]
+    if leftover.shape[0] != b or valid.shape[0] != b or carry.shape[0] != 2:
+        raise ValueError("reservoir_scan: shapes disagree")
+    if int(divisor) <= 0:
+        raise ValueError("reservoir_scan: the withdrawal divisor must be > 0")
+    return valid
+
+
+def reservoir_scan(savings: torch.Tensor, leftover: torch.Tensor, valid,
+                   carry: torch.Tensor, divisor: int):
+    """The reference reservoir policy over a chunk's measured blocks
+    (pactpu/codec/engine.py:765 _reservoir_scan_fn; reference
+    codec/Huffman.py:353-371, codec/codec.py:229, 258-260).
+
+    savings: i32[B, C] each channel's Huffman savings of the measurement
+    pass; leftover: i32[B] its allocation leftover; valid: bool[B], or the
+    count of valid blocks (a prefix); carry: i32[2] (bitDeposit,
+    extraBits) on the device.  Per valid block: withdraw deposit //
+    divisor when the deposit is above 10, fold a negative deposit into the
+    extra bits, grant them to channel 0, then deposit the block's savings
+    and carry its leftover; an invalid block is a no-op granted 0.  The
+    arithmetic is int32 and wraps, as pactpu's scan.  Returns (extras
+    f32[B], carry' i32[2]), both on the device, with no host round
+    trip."""
+    valid = _reservoir_check(savings, leftover, valid, carry, divisor)
+    dev = savings.device
+    if _on_cpu(dev):
+        return reservoir_scan_plain(savings, leftover, valid, carry, divisor)
+    b, c = savings.shape
+    extras = torch.empty(b, dtype=torch.float32, device=dev)
+    carry_out = torch.empty(2, dtype=torch.int32, device=dev)
+    _launch("reservoir_scan", dev, _ptr(savings), _ptr(leftover),
+            _ptr(valid), _ptr(carry), _ptr(carry_out), _ptr(extras), b, c,
+            int(divisor))
+    return extras, carry_out
+
+
+def reservoir_scan_plain(savings, leftover, valid, carry, divisor: int):
+    """Plain version of reservoir_scan: pactpu's scan step as a loop over
+    the blocks on the host, int32 wrapping made explicit; the results on
+    the inputs' device."""
+    valid = _reservoir_check(savings, leftover, valid, carry, divisor)
+    divisor = int(divisor)
+    sav = savings.long().sum(1).tolist()
+    left, ok = leftover.tolist(), valid.tolist()
+    deposit, extra = carry.tolist()
+    granted = [0] * len(sav)
+    for t, (s, l, v) in enumerate(zip(sav, left, ok)):
+        w = deposit // divisor if deposit > 10 else 0
+        neg = deposit < 0
+        g = _wrap32(extra + w + (deposit if neg else 0))
+        kept = deposit - w if deposit > 10 else (0 if neg else deposit)
+        if v:
+            deposit, extra, granted[t] = _wrap32(kept + s), l, g
+    dev = savings.device
+    return (torch.tensor(granted, dtype=torch.int32, device=dev).to(
+                torch.float32),
+            torch.tensor([deposit, extra], dtype=torch.int32, device=dev))

@@ -56,7 +56,8 @@ _EXP2_LO, _EXP2_HI = -1100, 1100
 _SPLIT = 134217729.0
 
 
-@lru_cache(maxsize=8)
+# unbounded: a captured CUDA graph reads it by address (codec/programs.py)
+@lru_cache(maxsize=None)
 def _exp2_table_f64(device: torch.device) -> torch.Tensor:
     """exp(float64(ln2 * k)) correctly rounded to float64, k in [_EXP2_LO,
     _EXP2_HI]: the reference's float64 2**k (module docstring)."""
@@ -75,7 +76,10 @@ def exp2i(e: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     the reference's rounding (see the module docstring)."""
     if dtype == torch.float64:
         k = torch.clamp(e.long(), _EXP2_LO, _EXP2_HI) - _EXP2_LO
-        return _exp2_table_f64(e.device)[k]
+        # index_select: the table[k] indexing broke the capture of the
+        # float64 stages into CUDA graphs on the card
+        return _exp2_table_f64(e.device).index_select(
+            0, k.reshape(-1)).reshape(k.shape)
     t = e.to(torch.float32) * _LN2_F32
     return torch.exp(t.double()).float()
 

@@ -5,8 +5,9 @@ The serving figures (the Engine's encode and decode) include the host:
 dispatch of a few hundred small operations a chunk, the native parse, the
 downloads.  This module measures what the card sustains on the compute
 alone, stage by stage, on one device-resident chunk: the analysis, the
-reservoir measurement pass, the final pass, the dense compaction, and the
-decode chunk program by the host-parse and the device-parse route.
+reservoir measurement pass, the reservoir scan (kernel K11), the final
+pass, the dense compaction, and the decode chunk program by the
+host-parse and the device-parse route, under pactpu's stage names.
 
 Method.  pactpu repeats a stage `iters` times inside one XLA program (a
 `fori_loop`), so that no dispatch latency enters the figure.  PyTorch has
@@ -26,10 +27,12 @@ time a repetition: the constant costs cancel.  On device="cpu" (an Engine
 on the CPU, asked for explicitly) the same slope is taken by the host
 clock.
 
-The reservoir replay runs on the host in the port (engine.reservoir_extras,
-a Python loop over blocks; pactpu runs it as a device scan): it is timed by
-the host clock under `reservoir_replay_host_ms` and is not part of
-`stage_ms` or the encode chain.
+The Engine runs the reservoir policy on the device, as pactpu does
+(`reservoir_scan`, K11 on the chunk's measurements).  The host replay
+that the cluster's ranges still run (engine.reservoir_extras, a Python
+loop over blocks) is timed by the host clock under
+`reservoir_replay_host_ms` and is not part of `stage_ms` or the encode
+chain.
 
 FLOPs.  XLA's cost analysis has no counterpart here; each stage's GEMM
 FLOPs are counted from its shapes (gemm_flops): the MDCT basis product
@@ -50,6 +53,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
 
 # NVIDIA H100 SXM data sheet: float32 FLOP/s outside the tensor cores, at
 # the full 700 W power limit
@@ -70,8 +74,9 @@ def gemm_flops(cfg, blocks: int) -> dict:
     rows = (6 if c == 2 else 1) * blocks
     masking = 2 * rows * n * n if cfg.peak_mode == "ref" else 0
     imdct = 2 * blocks * c * n * (2 * n)
-    return dict(analyze=mdct + masking, measure=0, finalize=0, compact=0,
-                decode=imdct, decode_device_parse=imdct)
+    return dict(analyze=mdct + masking, measure=0, reservoir_scan=0,
+                finalize=0, compact=0, decode=imdct,
+                decode_device_parse=imdct)
 
 
 def _cycles_per_s(device) -> float:
@@ -108,39 +113,27 @@ def _device_time(stage: Callable, n: int, rate: float, enqueue_s: float):
     return a.elapsed_time(b) / 1e3, covered
 
 
-def _leaves(out) -> list:
-    """The tensors of a stage's output (a tensor, or dicts, tuples and
-    lists of them; None skipped)."""
-    if torch.is_tensor(out):
-        return [out]
-    if isinstance(out, dict):
-        out = list(out.values())
-    if isinstance(out, (tuple, list)):
-        return [t for o in out for t in _leaves(o)]
-    return []
+def _tensors(out) -> list:
+    """The tensors of a stage's output (a pytree of tensors and others)."""
+    return [t for t in tree_leaves(out) if torch.is_tensor(t)]
 
 
-def _graphed(stage: Callable) -> Optional[Callable]:
-    """stage captured in a CUDA graph, as its replay, or None where it
-    cannot be captured or its replay does not give the stage's own
-    outputs.  Warmed on a side stream first, as torch.cuda.graph asks."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        stage()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+def _graphed(stage: Callable, device: torch.device) -> Optional[Callable]:
+    """stage captured in a CUDA graph (programs.Program.build: warmed on a
+    side stream first, as torch.cuda.graph asks), as its replay, or None
+    where it cannot be captured or its replay does not give the stage's
+    own outputs."""
+    from pactpu_torch.codec import programs
     try:
-        with torch.cuda.graph(graph):
-            static = _leaves(stage())
-    except RuntimeError:
+        prog, _ = programs.Program.build("devbench", stage, (), device)
+    except programs.CaptureError:
         return None
-    graph.replay()
-    want = _leaves(stage())
+    prog.replay()
+    static, want = _tensors(prog.static_out), _tensors(stage())
     if len(want) != len(static) or not all(
             torch.equal(a, b) for a, b in zip(static, want)):
         return None
-    return graph.replay
+    return prog.replay
 
 
 def _time_loop(stage: Callable, iters: int, device: torch.device,
@@ -153,7 +146,7 @@ def _time_loop(stage: Callable, iters: int, device: torch.device,
     cuda = device.type == "cuda"
     covered, replay = True, None
     if cuda:
-        replay = _graphed(stage)
+        replay = _graphed(stage, device)
         stage = replay or stage
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
@@ -201,12 +194,13 @@ def _chunk_pcm(pcm: Optional[np.ndarray], blocks: int, cfg) -> np.ndarray:
 def device_stages(pcm: np.ndarray, blocks: int, eng) -> tuple:
     """The stages measure_device_compute times, on one device-resident
     chunk of `blocks` blocks of pcm (already cut to that length): a dict
-    of name -> callable (analyze, measure, finalize, compact, decode and,
-    where the stream takes it, decode_device_parse), and the host
-    reservoir replay's inputs (savings, leftover, divisor)."""
+    of name -> callable (analyze, measure, reservoir_scan, finalize,
+    compact, decode and, where the stream takes it, decode_device_parse),
+    and the host reservoir replay's inputs (savings, leftover,
+    divisor)."""
     from pactpu_torch.codec import engine as E
     from pactpu_torch.codec.header import read_header
-    from pactpu_torch.ops import bitpack
+    from pactpu_torch.ops import bitpack, kernels
 
     cfg, device = eng.cfg, eng.device
     half, c = cfg.n_mdct_lines, cfg.n_channels
@@ -220,18 +214,21 @@ def device_stages(pcm: np.ndarray, blocks: int, eng) -> tuple:
     zeros = torch.zeros(blocks, device=device)
     a_dev = E.analyze(cfg, frames, dev)
     m_dev = E.finalize(cfg, a_dev, zeros, dev, measure_only=True)
+    divisor = cfg.reservoir_withdraw_divisor
+    valid = torch.ones(blocks, dtype=torch.bool, device=device)
+    carry0 = torch.zeros(2, dtype=torch.int32, device=device)
+    extras, _ = kernels.reservoir_scan(m_dev["savings"], m_dev["leftover"],
+                                       valid, carry0, divisor)
+    out_dev = E.finalize(cfg, a_dev, extras, dev, pack_words=pack_words)
     sav = m_dev["savings"].cpu().numpy()
     left = m_dev["leftover"].cpu().numpy()
-    divisor = cfg.reservoir_withdraw_divisor
-    extras = torch.from_numpy(
-        E.reservoir_extras(sav, left, divisor)[0].astype(np.float32)).to(
-            device)
-    out_dev = E.finalize(cfg, a_dev, extras, dev, pack_words=pack_words)
 
     stages = {
         "analyze": lambda: E.analyze(cfg, frames, dev),
         "measure": lambda: E.finalize(cfg, a_dev, zeros, dev,
                                       measure_only=True),
+        "reservoir_scan": lambda: kernels.reservoir_scan(
+            m_dev["savings"], m_dev["leftover"], valid, carry0, divisor),
         "finalize": lambda: E.finalize(cfg, a_dev, extras, dev,
                                        pack_words=pack_words),
     }
@@ -240,15 +237,22 @@ def device_stages(pcm: np.ndarray, blocks: int, eng) -> tuple:
         stages["compact"] = lambda: bitpack.compact_rows(
             out_dev["words"], out_dev["nbits"], cap)
 
-    # the decode chunk programs of both routes, on uploaded arguments
+    # the decode chunk programs of both routes, on uploaded arguments,
+    # staged launch by launch (the chunk's stage function itself: this
+    # module's own graph cannot capture the replay of the Engine's program)
     stream = eng.encode(pcm)
     scfg, _, off = read_header(stream)
-    staged = {"decode": eng._decode_staging_host_parse(stream, off, scfg)}
+    programmed, eng.use_programs = eng.use_programs, False
     try:
-        E._check_device_parse(scfg)
-        routed = eng._decode_staging_device_parse(stream, off, scfg)
-    except ValueError:
-        routed = None             # a stream the device parse does not take
+        staged = {"decode": eng._decode_staging_host_parse(stream, off,
+                                                           scfg)}
+        try:
+            E._check_device_parse(scfg)
+            routed = eng._decode_staging_device_parse(stream, off, scfg)
+        except ValueError:
+            routed = None         # a stream the device parse does not take
+    finally:
+        eng.use_programs = programmed
     if routed is not None:
         staged["decode_device_parse"] = routed
     carry = torch.zeros((c, half), dtype=dev["basis"].dtype, device=device)
@@ -265,10 +269,10 @@ def device_stages(pcm: np.ndarray, blocks: int, eng) -> tuple:
 def measure_device_compute(pcm: Optional[np.ndarray] = None,
                            blocks: int = 512, iters: int = 20,
                            eng=None) -> dict:
-    """Blocks/s of the encode compute chain (analyze, measure, finalize,
-    compact), the decode chunk program and the serial encode + decode,
-    each stage timed by itself (see the module docstring), with its ms and
-    GEMM FLOPs.  `pcm` (int16 [n, C]) gives the payload its statistics; it
+    """Blocks/s of the encode compute chain (analyze, measure,
+    reservoir_scan, finalize, compact), the decode chunk program and the
+    serial encode + decode, each stage timed by itself (see the module
+    docstring), with its ms and GEMM FLOPs.  `pcm` (int16 [n, C]) gives the payload its statistics; it
     is cropped or tiled to exactly `blocks` coded blocks, one chunk.
     eng: the Engine whose device, config and precision are measured
     (default Engine(rate_mode="reservoir"), on the card)."""

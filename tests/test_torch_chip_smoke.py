@@ -32,7 +32,8 @@ def test_synth_is_seeded():
 
 KERNELS = {"extract_codes", "water_fill", "pack_words", "pack_payload",
            "spread_maskers_up", "huffman_walk", "spread_maskers",
-           "exact_scan", "closed_form", "grant_fill", "cost_table"}
+           "exact_scan", "closed_form", "grant_fill", "cost_table",
+           "reservoir_scan"}
 
 
 def test_phases_on_cpu(monkeypatch, capsys):
@@ -259,7 +260,8 @@ def test_edge_inputs_are_seeded():
                         (chip_smoke.k8_edge, chip_smoke.K8_EDGES),
                         (chip_smoke.k8_nonfinite, chip_smoke.K8_NONFINITE),
                         (chip_smoke.k8_wide, ("203-bands",)),
-                        (chip_smoke.k9_edge, chip_smoke.K9_EDGES)):
+                        (chip_smoke.k9_edge, chip_smoke.K9_EDGES),
+                        (chip_smoke.k11_edge, chip_smoke.K11_EDGES)):
         for name in names:
             for a, b in zip(make(name), make(name)):
                 np.testing.assert_array_equal(a, b)
@@ -370,6 +372,39 @@ def test_surface_phase_on_cpu(monkeypatch, capsys):
     assert out["trained"]["symbols"] > 0
     assert out["trained"]["snr_db"] > chip_smoke.SNR_FLOOR_DB
     assert out["stereo_smrs_blocks"] == 64
+
+
+def test_programs_phase_on_cpu(monkeypatch, capsys):
+    """Phase 13 at a small size: on the CPU the stages run directly, so
+    this holds the eager stage chain (eager_encode, eager_decode) to the
+    Engine in both rate modes and parse routes, the dispatch half's bytes
+    and the timing in turns; the program replays are the card's."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    files = [chip_smoke.synth(0.5, 1), chip_smoke.synth(0.25, 2)]
+    launches = chip_smoke.phase13(torch, lambda **kw: Engine(
+        device="cpu", chunk_blocks=16, **kw), files, reps=1, buckets=(16,))
+    assert set(launches) == KERNELS
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [(x["phase"], x["rate"]) for x in lines] == [
+        ("13-programs", "reservoir"), ("13-programs", "cbr")]
+    res = lines[0]
+    assert res["blocks"] == 23 + 12 and res["memory_mb"] is None
+    assert res["captures"] == 0 and all(
+        n == 0 for n in res["programs"].values())
+    assert res["buckets_memory_mb"] is None and res["buckets_programs"] == 0
+    for key in ("serial_programs", "serial_eager", "batch_programs",
+                "batch_eager"):
+        assert len(res[f"{key}_blocks_per_s"]) == 2
+    assert res["sha256"] != lines[1]["sha256"]
+
+
+def test_eager_chain_is_the_parents_engine():
+    """eager_encode gives the Engine's bytes (the host replay's extras are
+    K11's) on a file of two 16-block chunks and a tail."""
+    pcm = chip_smoke.synth(1.0, 7)
+    for rate in ("reservoir", "cbr"):
+        eng = Engine(device="cpu", rate_mode=rate, chunk_blocks=16)
+        assert chip_smoke.eager_encode(eng, pcm) == eng.encode(pcm)
 
 
 def test_payload_helpers():

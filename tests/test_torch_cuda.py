@@ -945,3 +945,216 @@ def test_exact_scan_jump_edges(cuda, precision, case):
     torch.cuda.synchronize()
     want = K.exact_scan_plain(*args, jump=False)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# -- K11 reservoir_scan and the program layer ------------------------------
+
+@pytest.mark.parametrize("name", chip_smoke.K11_EDGES)
+def test_reservoir_scan_cases(cuda, name):
+    """K11 on k11_edge's inputs: extras (as float32 bit patterns) and the
+    carry bit-equal to the plain version's."""
+    s, lf, v, c, d = (torch.from_numpy(a).to(cuda)
+                      if isinstance(a, np.ndarray) else a
+                      for a in chip_smoke.k11_edge(name))
+    got = K.reservoir_scan(s, lf, v, c, d)
+    torch.cuda.synchronize()
+    want = K.reservoir_scan_plain(s, lf, v, c, d)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("blocks", [1, 31, 32, 33, 512, 4099])
+def test_reservoir_scan_chunks(cuda, blocks):
+    """K11 at chunk sizes around its 32-block pass, with a prefix count of
+    valid blocks (the Engine's tail), chained twice from a carry."""
+    rng = np.random.default_rng(blocks)
+    sav = torch.from_numpy(rng.integers(-3000, 6000, (blocks, 2))
+                           .astype(np.int32)).to(cuda)
+    left = torch.from_numpy(rng.integers(-300, 300, blocks)
+                            .astype(np.int32)).to(cuda)
+    carry_k = carry_p = torch.tensor([25, -4], dtype=torch.int32,
+                                     device=cuda)
+    for n_valid in (blocks, blocks * 2 // 3):
+        got = K.reservoir_scan(sav, left, n_valid, carry_k, 100)
+        want = K.reservoir_scan_plain(sav, left, n_valid, carry_p, 100)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        carry_k, carry_p = got[1], want[1]
+
+
+@pytest.mark.parametrize("rate_mode", ["reservoir", "cbr"])
+def test_programs_equal_the_eager_chain(cuda, rate_mode):
+    """A file of two full 64-block chunks and a 32-block tail, encoded and
+    decoded twice by an Engine whose stages are programs: the second run
+    (replays only) gives chip_smoke.eager_encode's bytes and
+    eager_decode's samples by both parse routes, and so does
+    roundtrip_many."""
+    from pactpu_torch import Engine
+    pcm = chip_smoke.synth(150 * 1024 / chip_smoke.FS, 12)
+    eng = Engine(device=cuda, rate_mode=rate_mode, chunk_blocks=64)
+    dev = Engine(device=cuda, rate_mode=rate_mode, chunk_blocks=64,
+                 decode_parse="device")
+    want = chip_smoke.eager_encode(eng, pcm)
+    want_pcm = chip_smoke.eager_decode(eng, want)[1]
+    for _ in range(2):
+        got = eng.encode(pcm)
+        assert got == want
+        assert np.array_equal(eng.decode(got)[1], want_pcm)
+        assert np.array_equal(dev.decode(got)[1], want_pcm)
+    (fs, out), = eng.roundtrip_many([pcm])
+    assert np.array_equal(out, want_pcm)
+    sizes = sorted(k[1][0][0][0] for k, p in eng.programs.items("final"))
+    assert sizes == [32, 64]
+    assert all(p.replays > 0 for st in ("analyze", "final", "decode")
+               for _, p in eng.programs.items(st))
+
+
+def test_programs_count_the_eager_launches(cuda):
+    """LAUNCHES after replays equal those of the same encode and decodes
+    launch by launch, kernel by kernel."""
+    from pactpu_torch import Engine
+    pcm = chip_smoke.synth(150 * 1024 / chip_smoke.FS, 13)
+
+    def run(eng, dev):
+        K.reset_launches()
+        s = eng.encode(pcm)
+        eng.decode(s)
+        dev.decode(s)
+        torch.cuda.synchronize()
+        return s, dict(K.LAUNCHES)
+
+    make = lambda **kw: Engine(device=cuda, chunk_blocks=64, **kw)  # noqa
+    eng, dev = make(), make(decode_parse="device")
+    run(eng, dev)                                    # builds the programs
+    got = run(eng, dev)
+    eng, dev = make(), make(decode_parse="device")
+    eng.use_programs = dev.use_programs = False      # launch by launch
+    want = run(eng, dev)
+    assert got[0] == want[0]
+    assert got[1] == want[1] and got[1]["reservoir_scan"] == 3
+
+
+def test_a_stage_that_syncs_raises_at_capture(cuda):
+    """A stage with a host sync (.item()) cannot be captured: the program
+    raises CaptureError naming the stage, and nothing runs in its place."""
+    from pactpu_torch.codec import programs
+    progs = programs.Programs(cuda)
+    x = torch.arange(8.0, device=cuda)
+
+    def stage(t):
+        return t * float(t.sum().item())
+
+    with pytest.raises(programs.CaptureError, match="'syncs'"):
+        progs.run("syncs", (), stage, (x,))
+    assert progs.items("syncs") == []
+    # the card takes work after the failed capture, and so do captures
+    assert float((x + 1).sum().item()) == 36.0
+    for _ in range(2):
+        assert torch.equal(progs.run("doubles", (), lambda t: t * 2, (x,)),
+                           x * 2)
+    (_, prog), = progs.items("doubles")
+    assert prog.replays == 1
+
+
+def test_programs_outlive_the_table_caches(cuda):
+    """An Engine's programs, built, then the module caches of device
+    tables that their graphs read filled with more keys than they once
+    held and the freed memory handed out and overwritten: the replays
+    still give the eager stage chain's bytes and samples."""
+    import gc
+    from pactpu_torch import Engine
+    from pactpu_torch.ops import bitpack
+    pcm = chip_smoke.synth(150 * 1024 / chip_smoke.FS, 15)
+    eng = Engine(device=cuda, chunk_blocks=64)
+    dev = Engine(device=cuda, chunk_blocks=64, decode_parse="device")
+    want = chip_smoke.eager_encode(eng, pcm)
+    want_pcm = chip_smoke.eager_decode(eng, want)[1]
+    s = eng.encode(pcm)                              # builds the programs
+    eng.decode(s)
+    dev.decode(s)
+    for k in range(20):
+        lay = (4 + k, 8, 12)
+        bitpack.device_plan(lay, 4, 4, 4, cuda)
+        bitpack._plan_tensors(lay, 4, 4, 4, cuda)
+        K._band_tensor(lay, torch.device(cuda))
+        K._exp2_ks(torch.device(cuda), torch.float32, 9 + k, 15)
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk = [torch.full((1 << 16,), -1, dtype=torch.int32, device=cuda)
+            for _ in range(256)]
+    got = eng.encode(pcm)
+    assert got == want
+    assert np.array_equal(eng.decode(got)[1], want_pcm)
+    assert np.array_equal(dev.decode(got)[1], want_pcm)
+    assert all(p.replays > 0 for st in ("analyze", "measure", "final")
+               for _, p in eng.programs.items(st))
+    del junk
+
+
+def test_capture_counts_its_own_launches(cuda):
+    """A program captured while another thread launches K11 on its own
+    stream: the program keeps the two launches of its stage, LAUNCHES
+    the other thread's and the warm-up's, and each replay adds two."""
+    import threading
+    from pactpu_torch.codec import programs
+    sav = torch.ones((64, 2), dtype=torch.int32, device=cuda)
+    left = torch.zeros(64, dtype=torch.int32, device=cuda)
+    valid = torch.ones(64, dtype=torch.bool, device=cuda)
+    carry = torch.zeros(2, dtype=torch.int32, device=cuda)
+
+    def stage(s):
+        ex, c = K.reservoir_scan(s, left, valid, carry, 100)
+        return K.reservoir_scan(s, left, valid, c, 100)
+
+    want = K.reservoir_scan_plain(sav.cpu(), left.cpu(), valid.cpu(),
+                                  K.reservoir_scan_plain(
+                                      sav.cpu(), left.cpu(), valid.cpu(),
+                                      carry.cpu(), 100)[1], 100)
+    done, started = threading.Event(), threading.Event()
+    n_other = [0]
+
+    def other():
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            while not done.is_set():
+                K.reservoir_scan(sav, left, valid, carry, 100)
+                n_other[0] += 1
+                started.set()
+            torch.cuda.current_stream().synchronize()
+
+    K.reset_launches()
+    t = threading.Thread(target=other)
+    t.start()
+    started.wait()
+    try:
+        prog, warm = programs.Program.build("two_scans", stage, (sav,),
+                                            torch.device(cuda))
+    finally:
+        done.set()
+        t.join()
+    assert prog.launches == {"reservoir_scan": 2}
+    assert K.LAUNCHES["reservoir_scan"] == n_other[0] + 2
+    got = prog(sav)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["reservoir_scan"] == n_other[0] + 4
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_reservoir_dispatch_makes_no_sync(cuda):
+    """The reservoir encode's dispatch half, its programs built, under
+    set_sync_debug_mode("error"): no host sync, no device-to-host copy;
+    the payload then downloaded gives the Engine's bytes."""
+    from pactpu_torch import Engine
+    from pactpu_torch.codec.header import write_header
+    pcm = chip_smoke.synth(150 * 1024 / chip_smoke.FS, 14)
+    eng = Engine(device=cuda, chunk_blocks=64)
+    want = eng.encode(pcm)
+    up = eng._upload_pcm(pcm, eng._analysis_batches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = eng._encode_dispatch(up)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert write_header(eng.cfg, pcm.shape[0])[0] + \
+        eng._finish_encode(st) == want
