@@ -111,7 +111,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
    and decode and again after a file of each tail bucket's size (every
    bucket's programs captured, all an Engine's graphs in one memory pool),
    and serial and batch blocks/s of the programs against the eager chain
-   in turns (the "programs" path: K1-K5 and K11 launched).
+   in turns (the "programs" path: K1-K5 and K11 launched); then phase
+   13b (phase13_modes): the exact mode at 128- and 512-block chunks and
+   in float64, the four other allocators and device_pack=False on a 10 s
+   file, each through programs against the same Engine launch by launch
+   (use_programs False): the routes stage by stage, the same bytes, the
+   same samples by both parse routes, the dispatch half under
+   set_sync_debug_mode("error"), the capture seconds, the memory
+   reserved and the graph pools; and the exact mode's serial encode
+   blocks/s on the 60 s file in float32 and float64, programs against
+   launches in turns (the "programs-modes" path: K7-K10 launched).
 
 K3 is held in both of its forms: pack_payload, the whole payload pack as
 the engine launches it (its plain version bitpack.pack_payload_bits_plain),
@@ -1992,6 +2001,9 @@ def phase1_bands_f64_exact(torch, pcm: np.ndarray, record, res: dict,
     for prec, tables in (("f32", E.device_tables(cfg, "cuda")),
                          ("f64", dev64)):
         a7 = k7_args(torch, cfg, tables, pcm, blocks)
+        # the valid mask read on the device, as the exact mode's program
+        # hands it over (the count form: the tail below)
+        a7 = (*a7[:3], torch.arange(blocks, device=dev) < a7[3], *a7[4:])
         ex, carry = K.exact_scan(*a7)
         stats = dict(steps=0, fills=0)
         walked = dict(steps=0, fills=0)
@@ -2003,9 +2015,14 @@ def phase1_bands_f64_exact(torch, pcm: np.ndarray, record, res: dict,
             and walked["steps"] < stats["steps"],
             f"K7's plain jump ({prec}) differs from the greedy steps")
         tail = (*a7[:3], 300, carry, *a7[5:])
-        check(all(torch.equal(x, y) for x, y in zip(
-            K.exact_scan(*tail), K.exact_scan_plain(*tail))),
-            f"K7 ({prec}) differs from its plain version on a padded tail")
+        masked = (*a7[:3], torch.arange(blocks, device=dev) < 300, carry,
+                  *a7[5:])
+        want = K.exact_scan_plain(*tail)
+        check(all(torch.equal(x, y) for got in (
+            K.exact_scan(*tail), K.exact_scan(*masked),
+            K.exact_scan_plain(*masked)) for x, y in zip(got, want)),
+            f"K7 ({prec}) differs from its plain version on a padded tail "
+            "(a count or a valid mask)")
         steps[prec] = stats
         # bytes: what the scan reads of the cost table (each fill's gathered
         # row, bands x tables), the SMRs, LRMS flags and line counts, the
@@ -3669,6 +3686,151 @@ def phase13_timing(torch, eng, files, ref, reps: int) -> dict:
             for k, v in times.items()}
 
 
+# phase 13b: (name, Engine keywords, the file: "10s" or "60s"); the
+# configurations that run their stages as programs since the exact mode,
+# the other allocators and host packing took them
+PROGRAM_MODES = (
+    ("exact-f32-128", dict(rate_mode="exact", chunk_blocks=128)),
+    ("exact-f32-512", dict(rate_mode="exact", chunk_blocks=512)),
+    ("exact-f64", dict(rate_mode="exact", precision="f64")),
+    *((mode, dict(alloc_mode=mode)) for mode in ALLOC_MODES),
+    ("host-pack", dict(device_pack=False)),
+)
+# the kernels each of them launches beyond the analysis's K4
+PROGRAM_MODE_KERNELS = {
+    "exact": ("cost_table", "exact_scan", "water_fill", "pack_payload"),
+    **{m: ("pack_payload", "reservoir_scan",
+           *(k for k in (ALLOC_KERNEL[m],) if k)) for m in ALLOC_MODES},
+    "host-pack": ("water_fill", "reservoir_scan")}
+
+
+def program_stages(kw: dict) -> set:
+    """The encode stages that run as programs on the card for Engine
+    keywords kw (programs.encode_programs)."""
+    if kw.get("rate_mode") == "exact":
+        return {"analyze", "cost", "exact_scan", "final"}
+    return {"analyze", "measure", "final"}
+
+
+def phase13_modes(torch, make_engine, pcm: np.ndarray, long_pcm: np.ndarray,
+                  reps: int = 2) -> dict:
+    """The configurations of PROGRAM_MODES through programs against the
+    same Engine launch by launch (use_programs False), each on pcm (a
+    10 s file): programs.encode_programs' answer stage by stage; a first
+    encode (the captures, timed) and a second (replays) byte-equal to the
+    launch-by-launch encode; the decode by programs on both parse routes
+    sample-equal to eager_decode's (host parse); the encode's dispatch half under
+    torch.cuda.set_sync_debug_mode("error") (no host sync, no
+    device-to-host copy), its payload the same bytes; the capture
+    seconds, the memory reserved and the Engine's graph pools.  Then the
+    exact mode in float32 and float64 on long_pcm (the 60 s file): serial
+    encode blocks/s by programs and launch by launch, in turns (programs,
+    launches, launches, programs) `reps` times, and the phase's seconds so
+    far.  Returns the launches of
+    the second encodes summed (the "programs-modes" path: K7, K8, K9 and
+    K10 through programs)."""
+    from pactpu_torch import CodecConfig
+    from pactpu_torch.codec import programs
+    from pactpu_torch.codec.header import write_header
+    from pactpu_torch.ops import kernels as K
+    cuda = DEV != "cpu"
+    total = {k: 0 for k in K.LAUNCHES}
+    start = time.perf_counter()
+    for name, kw in PROGRAM_MODES:
+        gc.collect()             # the memory read below: this mode's own
+        if cuda:
+            torch.cuda.empty_cache()
+        kw = dict(kw)
+        if "alloc_mode" in kw:
+            kw["cfg"] = CodecConfig(alloc_mode=kw.pop("alloc_mode"))
+        eng = make_engine(**kw)
+        eng_dev = make_engine(decode_parse="device", **kw)
+        want = program_stages(kw)
+        routes = programs.encode_programs(eng)
+        check(routes == {s: s in want and programs._card(eng)
+                         for s in routes}
+              and programs.decode_programs(eng_dev) == programs._card(eng),
+              f"13b {name}: the stages' routes are {routes}")
+        t0 = time.perf_counter()
+        first = eng.encode(pcm)
+        sync(torch)
+        first_s = time.perf_counter() - t0
+        K.reset_launches()
+        streams = eng.encode(pcm)
+        sync(torch)
+        launches = dict(K.LAUNCHES)
+        for k, n in launches.items():
+            total[k] += n
+        eng.use_programs = False
+        ref = eng.encode(pcm)
+        eng.use_programs = True
+        check(first == streams == ref,
+              f"13b {name}: the programmed stream differs from the same "
+              "Engine's launch by launch")
+        ref_pcm = eager_decode(eng, ref)[1]
+        check(np.array_equal(eng.decode(ref)[1], ref_pcm)
+              and np.array_equal(eng_dev.decode(ref)[1], ref_pcm),
+              f"13b {name}: a programmed decode (host or device parse) "
+              "differs from the eager chain's")
+        kind = ("exact" if kw.get("rate_mode") == "exact" else
+                kw["cfg"].alloc_mode if "cfg" in kw else "host-pack")
+        check_launched(launches, ("spread_maskers_up",
+                                  *PROGRAM_MODE_KERNELS[kind]),
+                       f"13b {name}")
+        check(kind != "host-pack" or launches["pack_payload"] == 0,
+              f"13b {name}: the host-packed encode launched K3")
+        up = eng._upload_pcm(pcm, eng._analysis_batches)
+        sync(torch)
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            st = eng._encode_dispatch(up)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        check(write_header(eng.cfg, pcm.shape[0])[0]
+              + eng._finish_encode(st) == ref,
+              f"13b {name}: the dispatch under sync debug gave other bytes")
+        sync(torch)
+        replays = {st_: sum(p.replays for _, p in eng.programs.items(st_))
+                   for st_ in sorted(want)}
+        check(not cuda or all(n > 0 for n in replays.values()),
+              f"13b {name}: a stage never replayed its program: {replays}")
+        say("13b-program-modes", mode=name, blocks=n_blocks(pcm),
+            routes=routes, first_encode_s=first_s,
+            capture_s=eng.programs.capture_s,
+            captures=eng.programs.captures, replays=replays,
+            memory_mb=({k: getattr(torch.cuda, f"memory_{k}")() / 2 ** 20
+                        for k in ("reserved", "allocated")}
+                       if cuda else None),
+            pools_mb={k: v / 2 ** 20
+                      for k, v in eng.programs.reserved().items()}
+            if cuda else None,
+            launches={k: v for k, v in launches.items() if v},
+            bytes=len(ref))
+        del eng, eng_dev
+    blocks = n_blocks(long_pcm)
+    for precision in ("f32", "f64"):
+        eng = make_engine(rate_mode="exact", precision=precision)
+        eng.encode(long_pcm)                   # captures
+        times = {"programs": [], "launches": []}
+        for _ in range(reps):
+            for who in ("programs", "launches", "launches", "programs"):
+                eng.use_programs = who == "programs"
+                sync(torch)
+                t0 = time.perf_counter()
+                eng.encode(long_pcm)
+                sync(torch)
+                times[who].append(time.perf_counter() - t0)
+        eng.use_programs = True
+        say("13b-exact-timing", precision=precision, blocks=blocks,
+            **{f"serial_encode_{k}_blocks_per_s": [blocks / t for t in v]
+               for k, v in times.items()},
+            phase_s=time.perf_counter() - start)
+        del eng
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3702,7 +3864,9 @@ def main() -> int:
                "distributed": phase11(torch, make, files[-1],
                                       synth(600.0, 5)),
                "surface": phase12(torch, files[0], files[-1]),
-               "programs": phase13(torch, make, files)}
+               "programs": phase13(torch, make, files),
+               "programs-modes": phase13_modes(torch, make, files[0],
+                                               files[-1])}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda",
              source=f"pactpu_torch/csrc/{REPLACES[name][0]}",

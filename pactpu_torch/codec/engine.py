@@ -53,12 +53,13 @@ reference's float64 arithmetic where it decides an integer
 precision, as pactpu does.
 
 On the card each stage of a chunk (the analysis, the measurement pass
-with K11, the final pass with the pack and the dense compaction, and the
-decode chunk of either parse route) runs as a CUDA-graph replay, captured
-once a shape (pactpu_torch.codec.programs; the configurations that stay
-launch by launch are listed there).  On the CPU, or with
-`Engine.use_programs` set to False, the stage functions run directly,
-launch by launch.
+with K11, the exact mode's cost tables (K10) and scan (K7), the final
+pass with the pack and the dense compaction or the host packer's fields,
+and the decode chunk of either parse route) runs as a CUDA-graph replay,
+captured once a shape, for every .wak configuration
+(pactpu_torch.codec.programs; .pac and debug_checks stay launch by
+launch).  On the CPU, or with `Engine.use_programs` set to False, the
+stage functions run directly, launch by launch.
 
 Float32 products run in full float32: the engine turns TF32 off
 (`torch.backends.cuda.matmul.allow_tf32`, `torch.backends.cudnn.allow_tf32`)
@@ -611,10 +612,17 @@ def reservoir_extras(savings: np.ndarray, leftover: np.ndarray,
 def resolve_device(device, who: str = "Engine") -> torch.device:
     """torch.device(device), raising where it names CUDA and there is no
     card: every entry point of the port runs on the card unless the caller
-    asks for the CPU."""
+    asks for the CPU.  A CUDA device without an index is the current
+    device now ("cuda" -> "cuda:<current>"), so that every table, stream,
+    pool and program of an Engine lives on one device whatever is current
+    later."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{who}(device={str(device)!r}): no CUDA device")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who}(device={str(device)!r}): no CUDA "
+                               "device")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -796,6 +804,17 @@ class Engine:
             return self.programs.run(stage, (self.precision, *key), fn, host)
         return fn(*(self._upload(a) for a in args))
 
+    def _exact_run(self):
+        """The runner of exact.exact_extras_chunked's stages, "cost" (K10)
+        and "exact_scan" (K7): each through its program where
+        programs.encode_programs says so (_run_stage)."""
+        routes, cfg = programs.encode_programs(self), self.cfg
+
+        def run(stage, fn, args):
+            return self._run_stage(stage, routes[stage], args[0].shape[0],
+                                   (cfg,), fn, args)
+        return run
+
     def _device_carry(self, carry) -> torch.Tensor:
         """A (bitDeposit, extraBits) carry as an i32[2] tensor on the
         device: a tensor as it is, host ints written by fills (a host value
@@ -863,7 +882,7 @@ class Engine:
         batch of their own."""
         cfg, dev = self.cfg, self.consts()
         half, offs = cfg.n_mdct_lines, up["offs"]
-        programmed = programs.encode_programs(self)
+        programmed = programs.encode_programs(self)["analyze"]
 
         def stage(x):
             return analyze(cfg, _overlap_frames(x, half), dev)
@@ -911,7 +930,8 @@ class Engine:
 
         if self.rate_mode == "exact":
             extras_chunks, carry = exact.exact_extras_chunked(
-                cfg, analyses, dev, b, self._device_carry(carry))
+                cfg, analyses, dev, b, self._device_carry(carry),
+                self._exact_run())
             self._last["extras"] = torch.cat(extras_chunks)
             return self._stage_payload(analyses, extras_chunks, b,
                                        sizes), carry
@@ -919,7 +939,7 @@ class Engine:
             extras_chunks = [torch.zeros(s, device=self.device)
                              for s in sizes]
         else:
-            programmed = programs.encode_programs(self)
+            programmed = programs.encode_programs(self)["measure"]
             divisor = cfg.reservoir_withdraw_divisor
             carry = self._device_carry(carry)
 
@@ -959,7 +979,7 @@ class Engine:
         cfg, dev = self.cfg, self.consts()
         c = cfg.n_channels
         pack_words = PACK_WORDS if self.device_pack else 0
-        programmed = programs.encode_programs(self)
+        programmed = programs.encode_programs(self)["final"]
 
         def stage(mixed, smr, lrms, overall, extras):
             out = finalize(cfg, dict(mixed=mixed, smr=smr, lrms=lrms,

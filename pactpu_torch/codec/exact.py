@@ -19,15 +19,19 @@ heavy part is computed for every allocation at once, batch-parallel:
 (cost_table: kernel K10, pactpu_torch.ops.kernels.cost_table), and the
 serial part is one water-fill per channel per block plus a gather of that
 table: kernel K7 (pactpu_torch.ops.kernels.exact_scan), one warp walking
-every block of a chunk, the carry chained across chunks on the device.
+every valid block of a chunk (a mask it reads on the device), the carry
+chained across chunks on the device.  The two are pactpu's two jit
+programs a chunk (_cost_fn, _extras_fn): on the card the Engine runs each
+as a CUDA-graph replay (stages "cost" and "exact_scan", pactpu_torch.
+codec.programs), the cost program on a second stream one chunk ahead of
+K7's, in a memory pool of its own.
 """
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import torch
 
+from pactpu_torch.codec import programs
 from pactpu_torch.ops import kernels
 from pactpu_torch.utils.config import CodecConfig
 
@@ -61,40 +65,53 @@ def packed_tables(dev: dict):
     return dev["packed"]
 
 
-@lru_cache(maxsize=8)
-def _side_stream(device: torch.device) -> torch.cuda.Stream:
-    """The stream the cost tables run on beside K7 (one a device)."""
-    return torch.cuda.Stream(device)
-
-
 def exact_extras_chunked(cfg: CodecConfig, analyses: list, dev: dict,
-                         n_real: int, carry: torch.Tensor = None):
+                         n_real: int, carry: torch.Tensor = None, run=None):
     """The exact trajectory over a file's chunks (pactpu.codec.exact.
-    exact_extras_chunked): per chunk the cost table, then kernel K7 from
-    the last chunk's carry.  n_real: the file's real blocks (the padding
-    behind them leaves the carry alone, so the chunk size never changes
-    the trajectory).  Returns (per-chunk extras f32[size] on the device,
-    the final carry i32[2] on the device); nothing waits for the device.
+    exact_extras_chunked): per chunk the cost table (stage "cost", K10,
+    pactpu's _cost_fn), then kernel K7 from the last chunk's carry (stage
+    "exact_scan", pactpu's _extras_fn) over the chunk's valid blocks.
+    n_real: the file's real blocks (the padding behind them leaves the
+    carry alone, so the chunk size never changes the trajectory).  run:
+    run(stage, fn, args) runs a stage on its tensor arguments (the
+    Engine's: a program replay on the card); None calls fn(*args).
+    Returns (per-chunk extras f32[size] on the device, the final carry
+    i32[2] on the device); nothing waits for the device.
 
-    On the card the cost tables (K10) run on a second stream, one chunk
-    ahead: chunk k + 1's beside chunk k's K7, which waits for its own
-    table by an event, so a chunk's table costs the chain nothing but its
-    first."""
+    On the card the cost tables run on a second stream, one chunk ahead:
+    chunk k + 1's beside chunk k's K7, which waits for its own table by an
+    event, so a chunk's table costs the chain nothing but its first.  As
+    programs, the cost program replays on that stream beside the
+    exact_scan program's replay (the two take separate memory pools,
+    programs.SIDE_STAGES)."""
     lay = dev["lay"]
     device = lay["n_lines"].device
+    run = run or (lambda stage, fn, args: fn(*args))
     if carry is None:
         carry = torch.zeros(2, dtype=torch.int32, device=device)
-    side = _side_stream(device) if device.type == "cuda" else None
+    side = programs.stream(device, "cost") if device.type == "cuda" else None
     main = torch.cuda.current_stream(device) if side is not None else None
     if side is not None:
         packed_tables(dev)                  # packed on main, read on side
         side.wait_stream(main)              # the analyses are queued there
 
+    def cost_stage(mixed):
+        return cost_table(cfg, dict(mixed=mixed), dev)
+
+    def scan_stage(smr, lrms, cost, valid, carry):
+        ex, carry = kernels.exact_scan(
+            smr.contiguous(), lrms.contiguous(), cost, valid, carry,
+            float(cfg.bit_budget()), lay["n_lines"], max_mant(cfg),
+            cfg.ms_stop_threshold_db, cfg.lr_stop_threshold_db,
+            cfg.n_table_id_bits, cfg.reservoir_withdraw_divisor)
+        # as pactpu: the extras go to finalize as float32
+        return ex.to(torch.float32), carry
+
     def table(k: int):
         if side is None:
-            return cost_table(cfg, analyses[k], dev), None
+            return run("cost", cost_stage, (analyses[k]["mixed"],)), None
         with torch.cuda.stream(side):
-            cost = cost_table(cfg, analyses[k], dev)
+            cost = run("cost", cost_stage, (analyses[k]["mixed"],))
             ready = torch.cuda.Event()
             ready.record(side)
         return cost, ready
@@ -109,13 +126,10 @@ def exact_extras_chunked(cfg: CodecConfig, analyses: list, dev: dict,
             main.wait_event(ready)
             cost.record_stream(main)
         size = a["smr"].shape[0]
-        ex, carry = kernels.exact_scan(
-            a["smr"].contiguous(), a["lrms"].contiguous(), cost,
-            n_real - done, carry, float(cfg.bit_budget()), lay["n_lines"],
-            max_mant(cfg), cfg.ms_stop_threshold_db,
-            cfg.lr_stop_threshold_db, cfg.n_table_id_bits,
-            cfg.reservoir_withdraw_divisor)
-        # as pactpu: the extras go to finalize as float32
-        extras.append(ex.to(torch.float32))
+        # padded tail blocks take no part (a fill: no upload)
+        valid = torch.arange(size, device=device) < max(0, n_real - done)
+        ex, carry = run("exact_scan", scan_stage,
+                        (a["smr"], a["lrms"], cost, valid, carry))
+        extras.append(ex)
         done += size
     return extras, carry

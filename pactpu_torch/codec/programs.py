@@ -14,35 +14,49 @@ the card a stage function here is captured once a key into a
   shared between Engines.  A graph also reads, by address, the device
   tables that module caches hold (the pack plan, the band and exp2
   tables): those caches never evict, so what a graph reads stays alive.
-- Capture: the stage runs once on a side stream (the warm-up fills the
-  caches that would break a capture, such as the pack plan and the walk
-  LUT, and its launches are real and counted), then once under capture,
-  into the one memory pool of the Engine's graphs.  The first call returns
-  the warm-up's outputs.  A capture that fails raises CaptureError naming
-  the stage: nothing runs eagerly in its place.
-- Replay: the call's tensors are copied into the graph's static inputs
-  (host arrays are uploaded into them), the graph is replayed, and the
-  outputs are returned as clones: a later replay of the same graph, or of
-  another graph of the pool, overwrites its static outputs, and a chunk's
-  analysis, measurement and words live past the next chunk's replay.
-  Replays run one at a time on the caller's stream, each cloned out
-  before the next, so the Engine's graphs can share one pool.
+- Capture: the stage runs once on a warm-up stream (the warm-up fills the
+  caches that would break a capture, such as the pack plan, the walk LUT
+  and K10's packed table set, and its launches are real and counted),
+  then once under capture, into a memory pool of the Engine's.  Every
+  step runs under `torch.cuda.device(device)`, and the capture runs on a
+  capture stream of the Engine's device (one a device, never torch's
+  process-wide default capture stream, which lives on whichever device
+  was current at the first capture): the kernel wrappers and torch ops
+  launch on the current stream of their tensors' device, so a capture on
+  a stream of another device would leave the graph empty.  The first call
+  returns the warm-up's outputs.  A capture that fails raises
+  CaptureError naming the stage: nothing runs eagerly in its place.
+- Replay: under the Engine's device, the call's tensors are copied into
+  the graph's static inputs (host arrays are uploaded into them), the
+  graph is replayed on the caller's stream, and the outputs are returned
+  as clones: a later replay of the same graph, or of another graph of the
+  pool, overwrites its static outputs, and a chunk's analysis,
+  measurement and words live past the next chunk's replay.
+- Pools: replays on one stream run one at a time, each cloned out before
+  the next, so those graphs share one pool ("main").  The exact mode
+  replays chunk k + 1's cost program (K10) on a second stream while chunk
+  k's exact_scan program (K7) replays on the caller's: the stages of
+  SIDE_STAGES take a pool of their own ("side"), so that two graphs
+  running at once never share intermediates or static outputs.
 - Launches: `kernels.LAUNCHES` counts wrapper calls, and a replay calls
   none.  The capturing thread's launches are counted apart
   (kernels.captured_launches: a capture launches nothing, and other
   threads go on counting theirs); a program adds them on each replay, so
   a programmed run counts what the same run launch by launch counts.
 
-Whether an Engine's stages run as programs is decided from its
-configuration alone, before any capture (encode_programs,
-decode_programs): on the CPU, or with `Engine.use_programs` False, the
-stage functions run directly, launch by launch; on the card the
-configurations listed there stay launch by launch, the rest are programs.
+Which of an Engine's stages run as programs is decided stage by stage
+from its configuration alone, before any capture (encode_programs,
+decode_programs), as pactpu compiles a jit program for each stage of
+every configuration: on the CPU, or with `Engine.use_programs` False,
+every stage function runs directly, launch by launch; on the card the
+.pac coder and debug_checks stay launch by launch, and every .wak
+configuration runs its stages as programs.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 from functools import lru_cache
@@ -66,30 +80,71 @@ class CaptureError(RuntimeError):
     a pageable copy, a cache filled inside the stage)."""
 
 
-def encode_programs(eng) -> bool:
-    """Whether an Engine's encode stages run as programs: on the card,
-    with eng.use_programs, but for the configurations that stay launch by
-    launch: the .pac coder, the exact rate mode (K10 on a second stream
-    beside K7), device_pack=False, the allocators other than water-filling
-    (their host budgets), and debug_checks (host checks of every pass)."""
-    return (eng.device.type == "cuda" and eng.use_programs
-            and eng.fmt == "wak" and eng.rate_mode != "exact"
-            and eng.device_pack and not eng.debug_checks
-            and eng.cfg.alloc_mode == "water_fill")
+# stages whose programs replay on a second stream beside another
+# program's replay (the exact mode's cost tables beside K7): a memory
+# pool of their own
+SIDE_STAGES = frozenset({"cost"})
+
+
+def _card(eng) -> bool:
+    """Whether any of eng's stages may run as a program: on the card, with
+    eng.use_programs."""
+    return eng.device.type == "cuda" and eng.use_programs
+
+
+def encode_programs(eng) -> dict:
+    """Which of an Engine's encode stages run as programs, stage by stage,
+    as pactpu compiles one for each (_chunk_analyze_fn, _reservoir_scan_fn,
+    _finalize_fn for every allocator and pack width, _cost_fn and
+    _extras_fn): on the card with eng.use_programs, for .wak, "analyze"
+    and "final" in every rate mode, allocator and packing (device_pack=
+    False: pack width 0); "measure" (the measurement pass with K11) in the
+    reservoir mode; "cost" (K10) and "exact_scan" (K7) in the exact mode.
+    The .pac coder and debug_checks (host checks between the passes, by
+    design) run every stage launch by launch."""
+    on = _card(eng) and eng.fmt == "wak" and not eng.debug_checks
+    exact = on and eng.rate_mode == "exact"
+    return dict(analyze=on, measure=on and eng.rate_mode == "reservoir",
+                cost=exact, exact_scan=exact, final=on)
 
 
 def decode_programs(eng) -> bool:
     """Whether an Engine's decode chunks run as programs: on the card,
     with eng.use_programs, for .wak on either parse route (.pac's device
     parse syncs)."""
-    return (eng.device.type == "cuda" and eng.use_programs
-            and eng.fmt == "wak")
+    return _card(eng) and eng.fmt == "wak"
 
 
-@lru_cache(maxsize=8)
-def _side_stream(device: torch.device) -> torch.cuda.Stream:
-    """The stream the warm-ups run on (one a device)."""
-    return torch.cuda.Stream(device)
+@lru_cache(maxsize=None)
+def stream(device: torch.device, role: str) -> torch.cuda.Stream:
+    """The stream of one role on an indexed CUDA device (an Engine's:
+    engine.resolve_device), made once: "warm" (the warm-ups), "capture"
+    (every capture of the device) or "cost" (the exact mode's cost tables
+    beside K7)."""
+    with torch.cuda.device(device):
+        return torch.cuda.Stream(device)
+
+
+def _static_inputs(args, device) -> list:
+    """The graph's static inputs: a copy of each argument on device."""
+    static_in = [torch.empty(a.shape, dtype=a.dtype, device=device)
+                 for a in args]
+    for s, a in zip(static_in, args):
+        s.copy_(a)
+    return static_in
+
+
+def _unaliased(out, static_in: list):
+    """out with each tensor that shares memory with a static input cloned
+    (a stage may hand an input on as an output: the final pass's overall
+    and lrms): the next call copies its inputs into the static inputs, and
+    the first call's outputs live past it."""
+    ins = {s.untyped_storage().data_ptr() for s in static_in}
+    leaves, spec = tree_flatten(out)
+    return tree_unflatten(
+        [t.clone() if torch.is_tensor(t)
+         and t.untyped_storage().data_ptr() in ins else t for t in leaves],
+        spec)
 
 
 class Program:
@@ -98,38 +153,42 @@ class Program:
     outputs); program(*args) replays it on args."""
 
     def __init__(self, stage: str, graph, static_in: list, out,
-                 launches: dict):
+                 launches: dict, device=None):
         self.stage = stage
         self.graph = graph
         self.static_in = static_in
         self.static_out, self.spec = tree_flatten(out)
         self.launches = launches
+        self.device = device
         self.replays = 0
 
     @classmethod
     def build(cls, stage: str, fn, args, device: torch.device, pool=None):
-        """Warm fn up on static copies of args on a side stream, then
-        capture it (into the memory pool `pool`, None = a pool of its
-        own)."""
-        static_in = [torch.empty(a.shape, dtype=a.dtype, device=device)
-                     for a in args]
-        for s, a in zip(static_in, args):
-            s.copy_(a)
-        main = torch.cuda.current_stream(device)
-        side = _side_stream(device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            warm = fn(*static_in)
-        main.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with kernels.captured_launches() as launches, torch.cuda.graph(
-                    graph, pool=pool, capture_error_mode="thread_local"):
-                out = fn(*static_in)
-        except Exception as e:
-            raise CaptureError(f"program {stage!r}: the stage could not be "
-                               f"captured into a CUDA graph ({e})") from e
-        return cls(stage, graph, static_in, out, dict(launches)), warm
+        """Warm fn up on static copies of args on the device's warm-up
+        stream, then capture it on the device's capture stream (into the
+        memory pool `pool`, None = a pool of its own), all under the
+        device's context."""
+        with torch.cuda.device(device):
+            static_in = _static_inputs(args, device)
+            main = torch.cuda.current_stream(device)
+            warm_stream = stream(device, "warm")
+            warm_stream.wait_stream(main)
+            with torch.cuda.stream(warm_stream):
+                warm = _unaliased(fn(*static_in), static_in)
+            main.wait_stream(warm_stream)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with kernels.captured_launches() as launches, \
+                        torch.cuda.graph(graph, pool=pool,
+                                         stream=stream(device, "capture"),
+                                         capture_error_mode="thread_local"):
+                    out = fn(*static_in)
+            except Exception as e:
+                raise CaptureError(
+                    f"program {stage!r}: the stage could not be captured "
+                    f"into a CUDA graph ({e})") from e
+        return cls(stage, graph, static_in, out, dict(launches),
+                   device), warm
 
     def replay(self) -> None:
         """Run the captured stage on the static inputs into the static
@@ -137,26 +196,31 @@ class Program:
         self.graph.replay()
 
     def __call__(self, *args):
-        for s, a in zip(self.static_in, args):
-            s.copy_(a)
-        self.replay()
+        # device None: the tests' CPU stand-in graphs
+        with (contextlib.nullcontext() if self.device is None
+              else torch.cuda.device(self.device)):
+            for s, a in zip(self.static_in, args):
+                s.copy_(a)
+            self.replay()
+            out = [t.clone() if torch.is_tensor(t) else t
+                   for t in self.static_out]
         self.replays += 1
         for k, n in self.launches.items():
             kernels.LAUNCHES[k] += n
-        return tree_unflatten([t.clone() if torch.is_tensor(t) else t
-                               for t in self.static_out], self.spec)
+        return tree_unflatten(out, self.spec)
 
 
 class Programs:
     """The programs of one Engine: per stage an LRU cache of at most
-    MAX_PROGRAMS programs by key, all captured into one memory pool.
-    capture_s sums the host seconds spent building them (warm-up and
-    capture), captures counts them."""
+    MAX_PROGRAMS programs by key, captured into the Engine's memory pool
+    of the stage ("side" for SIDE_STAGES, else "main").  capture_s sums
+    the host seconds spent building them (warm-up and capture), captures
+    counts them."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self._stages = {}
-        self._pool = None
+        self._pools = {}
         self.capture_s = 0.0
         self.captures = 0
 
@@ -165,6 +229,10 @@ class Programs:
         """A program's full key: the caller's and its inputs' shapes and
         types."""
         return (key, tuple((tuple(a.shape), a.dtype) for a in args))
+
+    @staticmethod
+    def pool_of(stage: str) -> str:
+        return "side" if stage in SIDE_STAGES else "main"
 
     def run(self, stage: str, key: tuple, fn, args):
         """fn(*args) through the stage's program for key (built at the
@@ -176,15 +244,17 @@ class Programs:
         if prog is not None:
             cache.move_to_end(full)
             return prog(*args)
-        if self._pool is None and self.device.type == "cuda":
-            self._pool = torch.cuda.graph_pool_handle()
+        pool = self.pool_of(stage)
+        if pool not in self._pools and self.device.type == "cuda":
+            self._pools[pool] = torch.cuda.graph_pool_handle()
         with _capture_lock:
             t0 = time.perf_counter()
             try:
                 prog, warm = Program.build(stage, fn, args, self.device,
-                                           self._pool)
+                                           self._pools.get(pool))
             except CaptureError:
-                self._pool = None      # the next capture takes a new pool
+                # the next capture takes a new pool
+                self._pools.pop(pool, None)
                 raise
             self.capture_s += time.perf_counter() - t0
         self.captures += 1
@@ -198,6 +268,20 @@ class Programs:
         used first."""
         return list(self._stages.get(stage, {}).items())
 
+    def reserved(self) -> dict:
+        """Bytes the device's caching allocator holds in each of the
+        Engine's graph pools, by pool name (torch.cuda.memory_snapshot's
+        segments of each pool)."""
+        if not self._pools:
+            return {}
+        owner = {tuple(h): name for name, h in self._pools.items()}
+        out = dict.fromkeys(self._pools, 0)
+        for seg in torch.cuda.memory_snapshot():
+            name = owner.get(tuple(seg.get("segment_pool_id", ())))
+            if name is not None and seg.get("device") == self.device.index:
+                out[name] += seg["total_size"]
+        return out
+
     def clear(self) -> None:
         self._stages.clear()
-        self._pool = None
+        self._pools.clear()

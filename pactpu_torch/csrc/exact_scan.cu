@@ -16,9 +16,17 @@
 //     + table id bits); chain = the fill's leftover
 //   deposit += sum of savings - take; extra = the last chain
 //
-// for the chunk's n_valid first blocks (the rest are padding: extras 0,
-// the carry untouched).  The carry (deposit, extra) comes in and goes out
-// as int32[2] on the device, so chunks chain with no host round trip.
+// for the chunk's valid blocks, a prefix that the kernel reads from the
+// flags valid[blocks] in device memory (the rest are padding: extras 0,
+// the carry untouched; pactpu's scan takes the same mask).  The carry
+// (deposit, extra) comes in and goes out as int32[2] on the device, and
+// nothing of a chunk is a launch argument that a file's chunks differ in,
+// so chunks chain with no host round trip and one captured CUDA graph
+// replays every chunk of a size, a file's padded last chunk too.  Both
+// warps find the prefix's length at the start: each thread reads every
+// 64th flag (independent loads, no early exit) and keeps the first
+// false one, a warp minimum, then the two warps' minimum through shared
+// memory before the first barrier.
 //
 // Bound on the H100: the chain of dependent fills.  Nothing of a block
 // can start before the last block's savings are known, so the time is
@@ -482,11 +490,12 @@ __device__ __forceinline__ int savings_of(const int32_t* rows,
 template <typename T, int S, bool kWide, bool kStaged>
 __global__ void __launch_bounds__(64)
 exact_scan_kernel(const T* __restrict__ smr, const uint8_t* __restrict__ lrms,
+                  const uint8_t* __restrict__ valid,
                   const int32_t* __restrict__ cost,
                   const int32_t* __restrict__ n_lines,
                   const int32_t* __restrict__ carry_in,
                   int32_t* __restrict__ carry_out,
-                  int32_t* __restrict__ extras, int blocks, int n_valid,
+                  int32_t* __restrict__ extras, int blocks,
                   int channels, int n_bands, int n_tab, double budget,
                   int max_mant_arg, T ms_stop_arg, T lr_stop_arg,
                   int tid_bits,
@@ -497,11 +506,19 @@ exact_scan_kernel(const T* __restrict__ smr, const uint8_t* __restrict__ lrms,
   __shared__ int sav0_s;
   __shared__ T stop_s[2];
   __shared__ int cap_s[2];
+  __shared__ int first_s[2];
   const int lane = threadIdx.x & 31;
   // warp-uniform for the compiler (a shuffle of lane 0's), so that the
   // role split below is no divergent branch around warp-wide operations
   const int warp = __shfl_sync(wf::kFull, static_cast<int>(threadIdx.x >> 5),
                                0);
+  // the valid prefix: the first block whose flag is false (blocks if none)
+  int first = blocks;
+#pragma unroll 4
+  for (int t = threadIdx.x; t < blocks; t += 64)
+    if (valid[t] == 0) first = min(first, t);
+  first = __reduce_min_sync(wf::kFull, first);
+  if (lane == 0) first_s[warp] = first;
   const int64_t cost_block =
       static_cast<int64_t>(channels) * n_bands * kAllocs * n_tab;
   const int row_bytes = static_cast<int>(cost_block * 4);
@@ -521,6 +538,7 @@ exact_scan_kernel(const T* __restrict__ smr, const uint8_t* __restrict__ lrms,
     cap_s[1] = n_bands;
   }
   __syncthreads();
+  const int n_valid = min(first_s[0], first_s[1]);
   if constexpr (kStaged) {
     if (threadIdx.x == 32) {
       for (int k = 0; k < kSlots; ++k)
@@ -648,7 +666,7 @@ exact_scan_kernel(const T* __restrict__ smr, const uint8_t* __restrict__ lrms,
     deposit = deposit - take + savings;
     extra = chain;
   }
-  for (int t = max(n_valid, 0) + lane; t < blocks; t += 32) extras[t] = 0;
+  for (int t = n_valid + lane; t < blocks; t += 32) extras[t] = 0;
   if (lane == 0) {
     carry_out[0] = deposit;
     carry_out[1] = extra;
@@ -656,10 +674,10 @@ exact_scan_kernel(const T* __restrict__ smr, const uint8_t* __restrict__ lrms,
 }
 
 template <typename T, int S, bool kWide = false>
-int launch(const T* smr, const uint8_t* lrms, const int32_t* cost,
-           const int32_t* n_lines, const int32_t* carry_in,
-           int32_t* carry_out, int32_t* extras, int blocks, int n_valid,
-           int channels, int n_bands, int n_tab, double budget, int max_mant,
+int launch(const T* smr, const uint8_t* lrms, const uint8_t* valid,
+           const int32_t* cost, const int32_t* n_lines,
+           const int32_t* carry_in, int32_t* carry_out, int32_t* extras,
+           int blocks, int channels, int n_bands, int n_tab, double budget, int max_mant,
            double ms_stop, double lr_stop, int tid_bits, int divisor,
            cudaStream_t stream) {
   const int64_t row_bytes =
@@ -674,23 +692,23 @@ int launch(const T* smr, const uint8_t* lrms, const int32_t* cost,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<1, 64, smem, stream>>>(
-        smr, lrms, cost, n_lines, carry_in, carry_out, extras, blocks,
-        n_valid, channels, n_bands, n_tab, budget, max_mant,
+        smr, lrms, valid, cost, n_lines, carry_in, carry_out, extras, blocks,
+        channels, n_bands, n_tab, budget, max_mant,
         static_cast<T>(ms_stop), static_cast<T>(lr_stop), tid_bits, divisor);
   } else {
     exact_scan_kernel<T, S, kWide, false><<<1, 64, 0, stream>>>(
-        smr, lrms, cost, n_lines, carry_in, carry_out, extras, blocks,
-        n_valid, channels, n_bands, n_tab, budget, max_mant,
+        smr, lrms, valid, cost, n_lines, carry_in, carry_out, extras, blocks,
+        channels, n_bands, n_tab, budget, max_mant,
         static_cast<T>(ms_stop), static_cast<T>(lr_stop), tid_bits, divisor);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const T* smr, const uint8_t* lrms, const int32_t* cost,
-             const int32_t* n_lines, const int32_t* carry_in,
-             int32_t* carry_out, int32_t* extras, int blocks, int n_valid,
-             int channels, int n_bands, int n_tab, double budget,
+int dispatch(const T* smr, const uint8_t* lrms, const uint8_t* valid,
+             const int32_t* cost, const int32_t* n_lines,
+             const int32_t* carry_in, int32_t* carry_out, int32_t* extras,
+             int blocks, int channels, int n_bands, int n_tab, double budget,
              int max_mant, double ms_stop, double lr_stop, int tid_bits,
              int divisor, cudaStream_t stream) {
   if (channels < 1 || channels > 2 || divisor == 0 || n_tab < 1 ||
@@ -699,44 +717,44 @@ int dispatch(const T* smr, const uint8_t* lrms, const int32_t* cost,
   const int slots = (n_bands + 31) / 32;
 #define PACTPU_K7_CASE(S)                                                   \
   if (slots <= S)                                                           \
-    return launch<T, S>(smr, lrms, cost, n_lines, carry_in, carry_out,      \
-                        extras, blocks, n_valid, channels, n_bands, n_tab,  \
-                        budget, max_mant, ms_stop, lr_stop, tid_bits,       \
-                        divisor, stream);
+    return launch<T, S>(smr, lrms, valid, cost, n_lines, carry_in,          \
+                        carry_out, extras, blocks, channels, n_bands,       \
+                        n_tab, budget, max_mant, ms_stop, lr_stop,          \
+                        tid_bits, divisor, stream);
   PACTPU_K7_CASE(1)
   PACTPU_K7_CASE(2)
   PACTPU_K7_CASE(4)
 #undef PACTPU_K7_CASE
   if (slots <= 32)
-    return launch<T, 32, true>(smr, lrms, cost, n_lines, carry_in,
-                               carry_out, extras, blocks, n_valid, channels,
-                               n_bands, n_tab, budget, max_mant, ms_stop,
-                               lr_stop, tid_bits, divisor, stream);
+    return launch<T, 32, true>(smr, lrms, valid, cost, n_lines, carry_in,
+                               carry_out, extras, blocks, channels, n_bands,
+                               n_tab, budget, max_mant, ms_stop, lr_stop,
+                               tid_bits, divisor, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-extern "C" int pactpu_exact_scan(
-    const float* smr, const uint8_t* lrms, const int32_t* cost,
-    const int32_t* n_lines, const int32_t* carry_in, int32_t* carry_out,
-    int32_t* extras, int blocks, int n_valid, int channels, int n_bands,
-    int n_tab, double budget, int max_mant, double ms_stop, double lr_stop,
-    int tid_bits, int divisor, cudaStream_t stream) {
-  return dispatch<float>(smr, lrms, cost, n_lines, carry_in, carry_out,
-                         extras, blocks, n_valid, channels, n_bands, n_tab,
+extern "C" int pactpu_exact_scan_valid(
+    const float* smr, const uint8_t* lrms, const uint8_t* valid,
+    const int32_t* cost, const int32_t* n_lines, const int32_t* carry_in,
+    int32_t* carry_out, int32_t* extras, int blocks, int channels,
+    int n_bands, int n_tab, double budget, int max_mant, double ms_stop,
+    double lr_stop, int tid_bits, int divisor, cudaStream_t stream) {
+  return dispatch<float>(smr, lrms, valid, cost, n_lines, carry_in,
+                         carry_out, extras, blocks, channels, n_bands, n_tab,
                          budget, max_mant, ms_stop, lr_stop, tid_bits,
                          divisor, stream);
 }
 
-extern "C" int pactpu_exact_scan_f64(
-    const double* smr, const uint8_t* lrms, const int32_t* cost,
-    const int32_t* n_lines, const int32_t* carry_in, int32_t* carry_out,
-    int32_t* extras, int blocks, int n_valid, int channels, int n_bands,
-    int n_tab, double budget, int max_mant, double ms_stop, double lr_stop,
-    int tid_bits, int divisor, cudaStream_t stream) {
-  return dispatch<double>(smr, lrms, cost, n_lines, carry_in, carry_out,
-                          extras, blocks, n_valid, channels, n_bands, n_tab,
+extern "C" int pactpu_exact_scan_valid_f64(
+    const double* smr, const uint8_t* lrms, const uint8_t* valid,
+    const int32_t* cost, const int32_t* n_lines, const int32_t* carry_in,
+    int32_t* carry_out, int32_t* extras, int blocks, int channels,
+    int n_bands, int n_tab, double budget, int max_mant, double ms_stop,
+    double lr_stop, int tid_bits, int divisor, cudaStream_t stream) {
+  return dispatch<double>(smr, lrms, valid, cost, n_lines, carry_in,
+                          carry_out, extras, blocks, channels, n_bands, n_tab,
                           budget, max_mant, ms_stop, lr_stop, tid_bits,
                           divisor, stream);
 }

@@ -94,23 +94,28 @@ int pactpu_spread_f64(const double* mspl, const double* lev,
 // K7: the exact serial bit reservoir over a chunk's blocks (smr [blocks,
 // channels, n_bands], lrms [blocks, n_bands], cost [blocks, channels,
 // n_bands, 17, n_tab]; channels 1 or 2, n_bands <= 1024, n_tab <= 16) for
-// its n_valid first blocks, from carry_in (deposit, extra) to carry_out;
-// extras [blocks] = each block's channel-0 extra bits, 0 past n_valid; in
-// float32 and in float64 (the type of the SMRs and of the total's sum).
-int pactpu_exact_scan(const float* smr, const uint8_t* lrms,
-                      const int32_t* cost, const int32_t* n_lines,
-                      const int32_t* carry_in, int32_t* carry_out,
-                      int32_t* extras, int blocks, int n_valid, int channels,
-                      int n_bands, int n_tab, double budget, int max_mant,
-                      double ms_stop, double lr_stop, int tid_bits,
-                      int divisor, cudaStream_t stream);
-int pactpu_exact_scan_f64(const double* smr, const uint8_t* lrms,
-                          const int32_t* cost, const int32_t* n_lines,
-                          const int32_t* carry_in, int32_t* carry_out,
-                          int32_t* extras, int blocks, int n_valid,
-                          int channels, int n_bands, int n_tab, double budget,
-                          int max_mant, double ms_stop, double lr_stop,
-                          int tid_bits, int divisor, cudaStream_t stream);
+// its valid blocks, the prefix of nonzero flags of valid [blocks] (read on
+// the device: n_valid = the first zero flag's index, blocks if none), from
+// carry_in (deposit, extra) to carry_out; extras [blocks] = each block's
+// channel-0 extra bits, 0 past n_valid; in float32 and in float64 (the
+// type of the SMRs and of the total's sum).
+int pactpu_exact_scan_valid(const float* smr, const uint8_t* lrms,
+                            const uint8_t* valid, const int32_t* cost,
+                            const int32_t* n_lines, const int32_t* carry_in,
+                            int32_t* carry_out, int32_t* extras, int blocks,
+                            int channels, int n_bands, int n_tab,
+                            double budget, int max_mant, double ms_stop,
+                            double lr_stop, int tid_bits, int divisor,
+                            cudaStream_t stream);
+int pactpu_exact_scan_valid_f64(const double* smr, const uint8_t* lrms,
+                                const uint8_t* valid, const int32_t* cost,
+                                const int32_t* n_lines,
+                                const int32_t* carry_in, int32_t* carry_out,
+                                int32_t* extras, int blocks, int channels,
+                                int n_bands, int n_tab, double budget,
+                                int max_mant, double ms_stop, double lr_stop,
+                                int tid_bits, int divisor,
+                                cudaStream_t stream);
 
 // K8: kai's closed-form allocation per row (init and take-back loop) from
 // budget [rows] and smr [rows, n_bands] (n_bands <= 1024), in float32 and

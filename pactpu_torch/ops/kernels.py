@@ -94,7 +94,7 @@ _MASK32 = 0xFFFFFFFF
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_double
-_SCAN_ARGS = [_P] * 7 + [_I] * 5 + [_D, _I, _D, _D, _I, _I, _P]
+_SCAN_ARGS = [_P] * 8 + [_I] * 4 + [_D, _I, _D, _D, _I, _I, _P]
 _COST_ARGS = [_P] * 5 + [_I] * 9 + [_P]
 # kernel name -> (C symbol in csrc/kernels.h, its argument types); every
 # function ends with the stream and returns cudaGetLastError()
@@ -107,7 +107,7 @@ _C_FUNCS = {
     "spread_maskers_up": ("pactpu_spread_up", [_P] * 5 + [_I] * 3 + [_P]),
     "huffman_walk": ("pactpu_huffman_walk", [_P] * 9 + [_I] * 9 + [_P]),
     "spread_maskers": ("pactpu_spread", [_P] * 7 + [_I] * 3 + [_P]),
-    "exact_scan": ("pactpu_exact_scan", _SCAN_ARGS),
+    "exact_scan": ("pactpu_exact_scan_valid", _SCAN_ARGS),
     "closed_form": ("pactpu_closed_form", [_P] * 4 + [_I] * 3 + [_P]),
     "grant_fill": ("pactpu_grant_fill", [_P] * 4 + [_I] * 4 + [_P]),
     "cost_table": ("pactpu_cost_table_packed", _COST_ARGS),
@@ -119,7 +119,7 @@ _C_FUNCS_F64 = {
                    [_P] * 6 + [_I] * 3 + [_D] * 2 + [_P]),
     "spread_maskers_up": ("pactpu_spread_up_f64", [_P] * 5 + [_I] * 3 + [_P]),
     "spread_maskers": ("pactpu_spread_f64", [_P] * 7 + [_I] * 3 + [_P]),
-    "exact_scan": ("pactpu_exact_scan_f64", _SCAN_ARGS),
+    "exact_scan": ("pactpu_exact_scan_valid_f64", _SCAN_ARGS),
     "closed_form": ("pactpu_closed_form_f64", [_P] * 4 + [_I] * 3 + [_P]),
     "cost_table": ("pactpu_cost_table_packed_f64", _COST_ARGS),
 }
@@ -782,22 +782,30 @@ def spread_maskers_plain(mspl, lev, bark, valid, drop_db, zvec,
 
 # -- K7 exact_scan -----------------------------------------------------------
 
-def _scan_check(smr, lrms, cost, n_lines, carry) -> None:
+def _scan_check(smr, lrms, cost, valid, n_lines, carry) -> torch.Tensor:
+    """The checked arguments of exact_scan; returns valid as a bool
+    tensor (a count of valid blocks becomes the prefix mask, made on the
+    device from the count, no upload)."""
     dev = smr.device
     _check("smr", smr, _FLOATS, 3, dev)
+    b, c, n_bands = smr.shape
+    if not torch.is_tensor(valid):
+        valid = torch.arange(b, device=dev) < int(valid)
     _check("lrms", lrms, torch.bool, 2, dev)
     _check("cost", cost, torch.int32, 5, dev)
+    _check("valid", valid, torch.bool, 1, dev)
     _check("n_lines", n_lines, torch.int32, 1, dev)
     _check("carry", carry, torch.int32, 1, dev)
-    b, c, n_bands = smr.shape
     if (lrms.shape != (b, n_bands) or cost.shape[:3] != (b, c, n_bands)
-            or cost.shape[3] != 17 or n_lines.shape[0] != n_bands
-            or carry.shape[0] != 2 or c not in (1, 2)):
+            or cost.shape[3] != 17 or valid.shape[0] != b
+            or n_lines.shape[0] != n_bands or carry.shape[0] != 2
+            or c not in (1, 2)):
         raise ValueError("exact_scan: shapes disagree")
+    return valid
 
 
 def exact_scan(smr: torch.Tensor, lrms: torch.Tensor, cost: torch.Tensor,
-               n_valid: int, carry: torch.Tensor, budget: float,
+               valid, carry: torch.Tensor, budget: float,
                n_lines: torch.Tensor, max_mant_bits: int, ms_stop: float,
                lr_stop: float, tid_bits: int, divisor: int):
     """The exact serial bit reservoir over a chunk's blocks (pactpu/codec/
@@ -807,20 +815,23 @@ def exact_scan(smr: torch.Tensor, lrms: torch.Tensor, cost: torch.Tensor,
     smr: f32[B, C, bands] (or f64: the fills and the total's sum then run
     in float64); lrms: bool[B, bands]; cost: i32[B, C, bands, 17, T], the
     Huffman bits of each band at each allocation under each table
-    (pactpu_torch.codec.exact.cost_table); n_valid: the chunk's real
-    blocks, a prefix (the rest is padding and leaves the carry alone);
-    carry: i32[2] (bitDeposit, extraBits) on the device.  Per block: the
+    (pactpu_torch.codec.exact.cost_table); valid: bool[B], the chunk's
+    real blocks, a prefix (pactpu's valid mask: the blocks from its first
+    False on are padding and leave the carry alone), which the kernel
+    reads on the device, or the count of valid blocks; carry: i32[2]
+    (bitDeposit, extraBits) on the device.  Per block: the
     withdrawal, channel 0's extra bits, the water-fill of each channel with
     total = int(budget + extra) in smr's type, channel k's leftover funding
     channel k + 1, and the deposit of every channel's Huffman savings.
-    Returns (extras i32[B]: channel 0's extra bits, 0 past n_valid; carry'
-    i32[2]), both on the device, with no host round trip."""
-    _scan_check(smr, lrms, cost, n_lines, carry)
+    Returns (extras i32[B]: channel 0's extra bits, 0 past the valid
+    prefix; carry' i32[2]), both on the device, with no host round trip:
+    nothing of it is a host value that a chunk's contents decide, so one
+    CUDA graph replays it for every chunk of a size."""
+    valid = _scan_check(smr, lrms, cost, valid, n_lines, carry)
     dev = smr.device
     b, c, n_bands = smr.shape
-    n_valid = max(0, min(int(n_valid), b))
     if _on_cpu(dev):
-        return exact_scan_plain(smr, lrms, cost, n_valid, carry, budget,
+        return exact_scan_plain(smr, lrms, cost, valid, carry, budget,
                                 n_lines, max_mant_bits, ms_stop, lr_stop,
                                 tid_bits, divisor)
     if n_bands > MAX_FILL_BANDS or cost.shape[4] > MAX_SCAN_TABLES:
@@ -830,9 +841,9 @@ def exact_scan(smr: torch.Tensor, lrms: torch.Tensor, cost: torch.Tensor,
         raise ValueError("exact_scan: the withdrawal divisor must be > 0")
     extras = torch.empty(b, dtype=torch.int32, device=dev)
     carry_out = torch.empty(2, dtype=torch.int32, device=dev)
-    _launch("exact_scan", dev, _ptr(smr), _ptr(lrms), _ptr(cost),
-            _ptr(n_lines), _ptr(carry), _ptr(carry_out), _ptr(extras), b,
-            n_valid, c, n_bands, cost.shape[4], float(budget),
+    _launch("exact_scan", dev, _ptr(smr), _ptr(lrms), _ptr(valid),
+            _ptr(cost), _ptr(n_lines), _ptr(carry), _ptr(carry_out),
+            _ptr(extras), b, c, n_bands, cost.shape[4], float(budget),
             int(max_mant_bits), float(ms_stop), float(lr_stop),
             int(tid_bits), int(divisor), f64=smr.dtype == torch.float64)
     return extras, carry_out
@@ -1053,7 +1064,7 @@ def water_fill_row_jump_plain(total: int, max_mant_bits: int,
     return _refund(row, n_lines)
 
 
-def exact_scan_plain(smr, lrms, cost, n_valid: int, carry, budget: float,
+def exact_scan_plain(smr, lrms, cost, valid, carry, budget: float,
                      n_lines, max_mant_bits: int, ms_stop: float,
                      lr_stop: float, tid_bits: int, divisor: int,
                      stats: dict = None, jump: bool = True):
@@ -1061,14 +1072,16 @@ def exact_scan_plain(smr, lrms, cost, n_valid: int, carry, budget: float,
     exact.py:152-175 as a loop over the blocks on the host, each channel's
     fill by water_fill_row_jump_plain as the kernel fills (jump=False:
     water_fill_row_plain, the greedy steps alone; the same result), total
-    = int(budget + extra) by torch in smr's type.  stats: a dict whose
+    = int(budget + extra) by torch in smr's type, over the prefix of
+    valid (bool[B] or a count; the blocks from its first False on are
+    padding, as the kernel reads it).  stats: a dict whose
     "steps" and "fills" it adds to (the steps walked one at a time, the
     greedy steps of the chain with jump=False; the fills), and with the
     jump "jumped" and "probes"."""
-    _scan_check(smr, lrms, cost, n_lines, carry)
+    valid = _scan_check(smr, lrms, cost, valid, n_lines, carry)
     dt = smr.dtype
     b, c, n_bands = smr.shape
-    n_valid = max(0, min(int(n_valid), b))
+    n_valid = int(torch.cumprod(valid.cpu().long(), 0).sum())
     smr_h, lrms_h = smr.cpu(), lrms.cpu().tolist()
     cost_h = cost.cpu()
     budget_t = torch.tensor(budget, dtype=dt)

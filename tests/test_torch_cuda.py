@@ -8,6 +8,8 @@ device and skip without one; the card's machine runs them with
 (--noconftest: the repository's conftest imports JAX, which that machine
 does not have).  Nothing here imports JAX or pactpu."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1158,3 +1160,142 @@ def test_reservoir_dispatch_makes_no_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert write_header(eng.cfg, pcm.shape[0])[0] + \
         eng._finish_encode(st) == want
+
+
+PROGRAM_MODES = dict(chip_smoke.PROGRAM_MODES)
+
+
+@pytest.mark.parametrize("name", list(PROGRAM_MODES))
+def test_program_modes_equal_launch_by_launch(cuda, name):
+    """Each configuration of chip_smoke.PROGRAM_MODES (the exact mode in
+    both precisions, the other allocators, device_pack=False) on a file of
+    two full 64-block chunks and a 32-block tail, encoded twice through
+    programs: the same bytes and last_extras as the same Engine launch by
+    launch, the decode by both parse routes the eager decode's samples,
+    every stage of chip_smoke.program_stages a program that replayed, and
+    the dispatch half with no host sync."""
+    from pactpu_torch import CodecConfig as Config
+    from pactpu_torch import Engine
+    from pactpu_torch.codec import programs
+    from pactpu_torch.codec.header import write_header
+    kw = dict(PROGRAM_MODES[name], chunk_blocks=64)
+    if "alloc_mode" in kw:
+        kw["cfg"] = Config(alloc_mode=kw.pop("alloc_mode"))
+    pcm = chip_smoke.synth(150 * 1024 / chip_smoke.FS, 15)
+    eng = Engine(device=cuda, **kw)
+    dev = Engine(device=cuda, decode_parse="device", **kw)
+    eng.use_programs = False
+    want = eng.encode(pcm)
+    want_extras = eng.last_extras
+    want_pcm = eng.decode(want)[1]
+    eng.use_programs = True
+    for _ in range(2):
+        assert eng.encode(pcm) == want
+        assert np.array_equal(eng.last_extras, want_extras)
+        assert np.array_equal(eng.decode(want)[1], want_pcm)
+        assert np.array_equal(dev.decode(want)[1], want_pcm)
+    stages = chip_smoke.program_stages(kw)
+    assert {s for s, on in programs.encode_programs(eng).items()
+            if on} == stages
+    for stage in stages:
+        sizes = sorted(k[1][0][0][0] for k, _ in eng.programs.items(stage)
+                       if stage != "analyze")
+        assert stage == "analyze" or sizes == [32, 64], stage
+        assert all(p.replays > 0 for _, p in eng.programs.items(stage))
+    up = eng._upload_pcm(pcm, eng._analysis_batches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = eng._encode_dispatch(up)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert write_header(eng.cfg, pcm.shape[0])[0] + \
+        eng._finish_encode(st) == want
+
+
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+def test_exact_scan_valid_mask(cuda, precision):
+    """K7 reading its valid mask from device memory: every prefix length
+    (none, part, all) from a mask, from a mask that starts off any
+    alignment (a view one byte in) and from the count, bit-equal to its
+    plain version with the same mask."""
+    from pactpu_torch.codec import engine as E
+    cfg = CodecConfig()
+    tables = E.device_tables(cfg, cuda, precision)
+    pcm = chip_smoke.synth(48 * 1024 / chip_smoke.FS, 8)
+    args = chip_smoke.k7_args(torch, cfg, tables, pcm, 48)
+    carry = torch.tensor([5000, -12], dtype=torch.int32, device=cuda)
+    for n in (0, 1, 17, 33, 47, 48):
+        valid = torch.arange(48, device=cuda) < n
+        shifted = torch.zeros(49, dtype=torch.bool, device=cuda)
+        shifted[1:] = valid
+        want = K.exact_scan_plain(*args[:3], valid, carry, *args[5:])
+        for v in (valid, shifted[1:], n):
+            got = K.exact_scan(*args[:3], v, carry, *args[5:])
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]), (n, v)
+            assert torch.equal(got[1], want[1]), (n, v)
+        assert not want[0][n:].any()
+
+
+def test_cost_replays_beside_scan_replays(cuda):
+    """The exact mode's cost program (K10) replays on the side stream
+    beside the main stream's exact_scan program (K7): the two take
+    separate memory pools, the bytes are the eager chain's, and the
+    replays did run at once on the card (a cost replay's span, by CUDA
+    events on its stream, overlaps a K7 replay's)."""
+    from pactpu_torch import Engine
+    from pactpu_torch.codec import programs
+    pcm = chip_smoke.synth(2000 * 1024 / chip_smoke.FS, 16)
+    eng = Engine(device=cuda, rate_mode="exact", chunk_blocks=512)
+    eng.use_programs = False
+    want = eng.encode(pcm)
+    eng.use_programs = True
+    assert eng.encode(pcm) == want                # builds the programs
+    spans, host = [], []
+    call = programs.Program.__call__
+
+    def traced(self, *args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = call(self, *args)
+        ev[1].record()
+        spans.append((self.stage, *ev))
+        host.append((self.stage, time.perf_counter()))
+        return out
+
+    programs.Program.__call__ = traced
+    try:
+        for _ in range(2):
+            assert eng.encode(pcm) == want
+    finally:
+        programs.Program.__call__ = call
+    torch.cuda.synchronize()
+    t0 = spans[0][1]
+    ms = [(st, t0.elapsed_time(a), t0.elapsed_time(b)) for st, a, b in spans]
+    cost = [(a, b) for st, a, b in ms if st == "cost"]
+    scan = [(a, b) for st, a, b in ms if st == "exact_scan"]
+    assert any(a < d and c < b for a, b in cost for c, d in scan), (ms, [
+        (st, t - host[0][1]) for st, t in host])
+    pools = eng.programs._pools
+    assert set(pools) == {"main", "side"} and pools["main"] != pools["side"]
+    reserved = eng.programs.reserved()
+    assert reserved["side"] > 0 and reserved["main"] > 0
+
+
+def test_capture_off_the_current_device(cuda):
+    """An Engine on the second card used while the first is current: its
+    programs capture there, and their replays give the bytes of the same
+    Engine launch by launch (the card's machine has one card: skipped
+    there)."""
+    from pactpu_torch import Engine
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    pcm = chip_smoke.synth(150 * 1024 / chip_smoke.FS, 17)
+    eng = Engine(device="cuda:1", chunk_blocks=64)
+    eng.use_programs = False
+    want = eng.encode(pcm)
+    eng.use_programs = True
+    with torch.cuda.device(0):
+        got = [eng.encode(pcm) for _ in range(3)]
+    assert got == [want] * 3

@@ -156,7 +156,7 @@ ANCHORS = {
         ("      bar_sync(kBarSavings);           // warp 1 has staged block "
          "t + 2\n", "      k7sink ^= savings;\n      K7_MARK(1);\n",
          "before"),
-        ("  for (int t = max(n_valid, 0) + lane; t < blocks; t += 32) "
+        ("  for (int t = n_valid + lane; t < blocks; t += 32) "
          "extras[t] = 0;\n",
          "  K7_MARK(3);\n  if (lane == 0)\n    k7_store(k7c, clock64() - "
          "k7_start, k7fills, k7sink);\n", "before"),
@@ -244,7 +244,8 @@ def main() -> int:
     lib_path, form = build(K, os.path.abspath(args.csrc),
                            os.path.join(K.BUILD_DIR, "k7_clock"))
     names = PHASES[form]
-    clocked = K.bind(lib_path, ["pactpu_exact_scan", "pactpu_exact_scan_f64"])
+    clocked = K.bind(lib_path, [K._C_FUNCS["exact_scan"][0],
+                                K._C_FUNCS_F64["exact_scan"][0]])
     clocked.pactpu_k7_clock_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     clocked.pactpu_k7_clock_read.restype = ctypes.c_int
     jumps = hasattr(clocked, "pactpu_k7_jump_read")

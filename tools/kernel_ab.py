@@ -45,7 +45,10 @@ call (torch.profiler's device events), and the kernel's line its byte
 bound and the launch floor.  The cost tables' plain version (the tensor
 operations kernel K10 replaced) takes its turns as version "plain"; a
 version whose K10 reads the table set unpacked (the earlier K10) is
-launched through cost_table_unpacked.
+launched through cost_table_unpacked, and one whose K7 takes the count of
+valid blocks as a launch argument (the earlier K7) through
+exact_scan_count; this checkout's K7 reads a valid mask made once, as
+the engine's programs hand it over.
 
 `--prefill NAME`: version NAME's huffman_walk writes only the lines of
 active bands (the kernel before the one that writes every line), so its
@@ -117,6 +120,32 @@ def cost_table_unpacked(torch, K, lib, a10):
     if rc != 0:
         raise RuntimeError(f"cost_table (unpacked): CUDA error {rc}")
     return out
+
+
+def exact_scan_count(torch, K, lib, a7, n_valid: int):
+    """kernels.exact_scan's launch for a library whose K7 takes the count
+    of valid blocks as a launch argument (the earlier K7:
+    pactpu_exact_scan(_f64), before the valid mask read on the device), on
+    the same arguments, with the count n_valid."""
+    smr, lrms, cost, _, carry, budget, n_lines, max_mant, ms_stop, \
+        lr_stop, tid_bits, divisor = a7
+    b, c, n_bands = smr.shape
+    extras = torch.empty(b, dtype=torch.int32, device=smr.device)
+    carry_out = torch.empty(2, dtype=torch.int32, device=smr.device)
+    fn = getattr(lib, "pactpu_exact_scan_f64" if smr.dtype == torch.float64
+                 else "pactpu_exact_scan")
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    fn.argtypes = [P] * 7 + [I] * 5 + [D, I, D, D, I, I, P]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(smr.device).cuda_stream
+    rc = fn(*(K._ptr(t) for t in (smr, lrms, cost, n_lines, carry,
+                                  carry_out, extras)),
+            b, int(n_valid), c, n_bands, cost.shape[4], float(budget),
+            int(max_mant), float(ms_stop), float(lr_stop), int(tid_bits),
+            int(divisor), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"exact_scan (count): CUDA error {rc}")
+    return extras, carry_out
 
 
 def per_step(torch, K, chip_smoke, libs, use) -> None:
@@ -370,6 +399,10 @@ def main() -> int:
     if {"exact_scan", "cost_table", "cost_table_f64"} & set(args.kernels):
         tables = device_tables(eng.cfg, "cuda")
         a7 = chip_smoke.k7_args(torch, eng.cfg, tables, pcm, 512)
+        # K7 reads its valid mask from device memory (the engine's and
+        # the programs' form); an earlier K7 takes the count
+        n7 = a7[3]
+        a7 = (*a7[:3], torch.arange(512, device="cuda") < n7, *a7[4:])
         a10 = chip_smoke.k10_args(torch, eng.cfg, tables, pcm, 512)
         a10d = chip_smoke.k10_args(torch, eng.cfg, device_tables(
             eng.cfg, "cuda", "f64"), pcm, 512)
@@ -466,6 +499,12 @@ def main() -> int:
                             a10d if f64 else a10)
                 names.append("plain")
                 run["plain"] = plain_fn
+            if kernel == "exact_scan":     # K7 before the valid mask
+                for n, lib in libs.items():
+                    if n not in run and hasattr(lib, "pactpu_exact_scan"):
+                        names.append(n)
+                        run[n] = functools.partial(exact_scan_count, torch,
+                                                   K, lib, a7, n7)
             if kernel == "pack_payload":    # the parent's pack step
                 parts = functools.partial(chip_smoke.pack_prologue_and_k3,
                                           f3, eng.cfg, 256)

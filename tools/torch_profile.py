@@ -19,7 +19,9 @@ lines:
 - "stages": host-clock seconds of each stage of one serial encode +
   decode, with a device synchronize after each stage (so a stage's own
   device work lands in it); the exact mode's encode in three stages (the
-  analysis, the cost tables and kernel K7, the final pass);
+  analysis, the cost tables and kernel K7, the final pass); then the
+  memory reserved, the Engine's graph pools' share of it by pool, and the
+  capture seconds;
 - "device": a torch.profiler trace of one encode + decode with no added
   synchronization: wall seconds, summed kernel (device) seconds, the
   device's busy and idle shares, the device time of each of the port's own
@@ -125,7 +127,7 @@ def main() -> int:
                                    pcm)
         extras, _ = stage("encode/cost-tables+exact-scan",
                           exact.exact_extras_chunked, cfg, analyses,
-                          eng.consts(), b)
+                          eng.consts(), b, None, eng._exact_run())
         st = stage("encode/finalize", eng._stage_payload, analyses, extras,
                    b, sizes)
         payload = stage("encode/download+assemble", eng._finish_encode, st)
@@ -154,7 +156,14 @@ def main() -> int:
                 decode_programs=programs.decode_programs(eng))
     print(json.dumps({**mode,
                       "stages": stages, "blocks": blocks,
-                      "total_s": round(sum(stages.values()), 6)}))
+                      "total_s": round(sum(stages.values()), 6),
+                      # after the warm and the split run: every program
+                      # captured; the Engine's graph pools by name
+                      "memory_reserved_mb": torch.cuda.memory_reserved()
+                      / 2 ** 20,
+                      "pools_mb": {k: v / 2 ** 20 for k, v in
+                                   eng.programs.reserved().items()},
+                      "capture_s": eng.programs.capture_s}))
 
     K.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
