@@ -82,8 +82,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
    histograms identical, the reservoir with rank 1's part lost and
    recovered, the decode assembled within 1 LSB, and what the per-range
    reservoir restart costs (bytes, SNR); a 10-minute file over 1 and 4
-   shards timed beside Engine.encode; devbench.measure_device_compute on
-   the 60 s file's first 512 blocks;
+   shards timed beside Engine.encode; a second cbr encode capturing no
+   program (the shard devices' owners hold them), the owners' captures
+   and replays and the memory reserved; devbench.measure_device_compute
+   on the 60 s file's first 512 blocks;
 12. the public surface ported last (phase12): Engine(CodecConfig(),
    "cbr") and Engine(cfg=..., rate_mode="cbr") give the same bytes on a
    10 s file; pactpu_torch.StreamingEncoder(chunk_blocks=64) in 1 s
@@ -120,7 +122,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
    set_sync_debug_mode("error"), the capture seconds, the memory
    reserved and the graph pools; and the exact mode's serial encode
    blocks/s on the 60 s file in float32 and float64, programs against
-   launches in turns (the "programs-modes" path: K7-K10 launched).
+   launches in turns (the "programs-modes" path: K7-K10 launched); then
+   phase 13c (phase13_paths): the paths that took programs last, each
+   against itself launch by launch (programs.launch_by_launch): the 60 s
+   file streamed in 1 s pushes, restored after block 700, and a 10 s
+   exact stream (the same bytes, the Engine's), the streamed decode at 16
+   and 512 blocks (the same samples); encode_distributed in cbr and
+   reservoir and decode_distributed on 1, 2 and 4 shards of the card
+   (the same bytes and samples, a second call capturing nothing); .pac
+   stereo and mono encoded and decoded by both parse routes; a stream
+   push's, a shard encode's, a .pac encode's and a device-parse decode's
+   dispatch under set_sync_debug_mode("error"); each path's captures,
+   replays by stage, capture seconds and graph pools, and in turns the 1 s
+   pushes, the 16-block streamed decode, the 10-minute file's cbr encode
+   on 1 and 4 shards and the .pac encode and device-parse decode (the
+   "programs-paths" path).
 
 K3 is held in both of its forms: pack_payload, the whole payload pack as
 the engine launches it (its plain version bitpack.pack_payload_bits_plain),
@@ -2781,12 +2797,16 @@ def stream_splits(pcm: np.ndarray, half: int = 1024) -> dict:
 
 
 def stream_encode(pcm: np.ndarray, cuts, rate_mode: str = "reservoir",
-                  resume_at: int = None, chunk_blocks: int = None) -> bytes:
+                  resume_at: int = None, chunk_blocks: int = None,
+                  engines: list = None) -> bytes:
     """StreamingEncoder over the pushes between `cuts`; with resume_at, the
-    state after the push that ends there restores into a fresh encoder."""
+    state after the push that ends there restores into a fresh encoder.
+    engines: a list that takes each encoder's Engine."""
     from pactpu_torch import StreamingEncoder
+    engines = [] if engines is None else engines
     enc = StreamingEncoder(rate_mode=rate_mode, chunk_blocks=chunk_blocks,
                            device=DEV)
+    engines.append(enc._eng)
     parts = [enc.header(pcm.shape[0])]
     for a, b in zip(cuts[:-1], cuts[1:]):
         parts.append(enc.push(pcm[a:b]))
@@ -2795,24 +2815,29 @@ def stream_encode(pcm: np.ndarray, cuts, rate_mode: str = "reservoir",
                                            rate_mode=rate_mode,
                                            chunk_blocks=chunk_blocks,
                                            device=DEV)
+            engines.append(enc._eng)
     parts.append(enc.flush())
     return b"".join(parts)
 
 
 def stream_decode(stream: bytes, chunk_blocks: int, step: int = 4099,
-                  resume_at: int = None) -> np.ndarray:
+                  resume_at: int = None, engines: list = None) -> np.ndarray:
     """StreamingDecoder over `step`-byte pushes; with resume_at, restored
-    from its state after the push that starts there."""
+    from its state after the push that starts there.  engines: a list that
+    takes each decoder's Engine."""
     from pactpu_torch.codec.stream import StreamingDecoder
+    engines = [] if engines is None else engines
     dec = StreamingDecoder(chunk_blocks=chunk_blocks, device=DEV)
     outs = []
     for i in range(0, len(stream), step):
         outs.append(dec.push(stream[i:i + step]))
         if i == resume_at:
+            engines.append(dec._eng)
             dec = StreamingDecoder.restore(dec.state_bytes(),
                                            chunk_blocks=chunk_blocks,
                                            device=DEV)
     outs.append(dec.flush())
+    engines.append(dec._eng)
     return np.concatenate([o for o in outs if o.size])
 
 
@@ -3219,6 +3244,15 @@ def phase11(torch, make_engine, pcm: np.ndarray, long_pcm: np.ndarray,
                                   "huffman_walk"], "the distributed path")
         check(all(np.array_equal(h, hists[0]) for h in hists),
               "the histogram depends on the mesh")
+        # the shard devices' owners hold their programs across calls
+        owners = list({id(o): o for m in meshes.values()
+                       for c in cfgs.values()
+                       for o in shard.mesh_owners(c, m)}.values())
+        captured = sum(o.programs.captures for o in owners)
+        cluster.encode_distributed(pcm, cfg=cfgs[DIST_BPS[0]],
+                                   mesh=meshes[max(shards)], rate_mode="cbr")
+        check(sum(o.programs.captures for o in owners) == captured,
+              "a second distributed call captured programs again")
 
         # both fallbacks forced once: rows past a 32-word packer (the
         # 968-word re-run) and a dense cap of one word a row
@@ -3291,6 +3325,12 @@ def phase11(torch, make_engine, pcm: np.ndarray, long_pcm: np.ndarray,
           f"{bench['stage_ms']}")
     say("11-distributed", blocks=n_blocks(pcm), shards=list(shards),
         backend=backend, encode_s=runs, decode=decoded,
+        owners=len(owners), owner_captures=captured,
+        owner_replays=program_stats(owners)["replays"],
+        owner_pools_mb=program_stats(owners)["pools_mb"],
+        memory_mb=({k: getattr(torch.cuda, f"memory_{k}")() / 2 ** 20
+                    for k in ("reserved", "allocated")}
+                   if DEV != "cpu" else None),
         wide_rerun=wide, launches=launches, cbr_turns_s=turn_s,
         long_blocks=n_blocks(long_pcm), long_cbr=long_runs, gloo=gloo)
     say("11-devbench", **bench)
@@ -3831,6 +3871,245 @@ def phase13_modes(torch, make_engine, pcm: np.ndarray, long_pcm: np.ndarray,
     return total
 
 
+def no_sync(torch, fn):
+    """fn run under torch.cuda.set_sync_debug_mode("error") on the card: a
+    host sync or a copy from the host inside it raises (on the CPU, fn)."""
+    def guarded(*args, **kw):
+        if DEV == "cpu":
+            return fn(*args, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return guarded
+
+
+def by_route(fn) -> dict:
+    """fn by programs and launch by launch (programs.launch_by_launch), as
+    in_turns takes them: {"programs": fn, "launches": ...}."""
+    from pactpu_torch.codec import programs
+
+    def launches():
+        with programs.launch_by_launch():
+            return fn()
+    return {"programs": fn, "launches": launches}
+
+
+def program_stats(engines) -> dict:
+    """The program layer of some Engines (each once): captures, capture
+    seconds, replays by stage and the graph pools' MB by pool (None on the
+    CPU)."""
+    seen = list({id(e): e for e in engines}.values())
+    replays, pools = {}, {}
+    for e in seen:
+        for stage, n in e.programs.replays().items():
+            replays[stage] = replays.get(stage, 0) + n
+        if DEV != "cpu":
+            for name, n in e.programs.reserved().items():
+                pools[name] = pools.get(name, 0) + n / 2 ** 20
+    return dict(engines=len(seen),
+                captures=sum(e.programs.captures for e in seen),
+                capture_s=sum(e.programs.capture_s for e in seen),
+                replays=replays,
+                pools_mb=pools if DEV != "cpu" else None)
+
+
+# phase 13c: the stages each path must have replayed
+PATH_STAGES = {
+    "stream": ("analyze", "measure", "final", "cost", "exact_scan",
+               "synthesize"),
+    "shard": ("analyze", "shard_measure", "shard_final", "shard_decode"),
+    "pac": ("baseline", "decode", "decode_device_parse")}
+
+
+def phase13_paths(torch, make_engine, pcm: np.ndarray, short: np.ndarray,
+                  long_pcm: np.ndarray, shards=(1, 2, 4),
+                  ckpt_block: int = 700) -> dict:
+    """The paths that run as programs since the streams, the shard paths
+    and the .pac coder took them, each against the same path launch by
+    launch (programs.launch_by_launch):
+
+    - streams: pcm (the 60 s file) in 1 s pushes, restored after block
+      ckpt_block, and `short` (10 s) as an exact stream, the same bytes by
+      both routes and the Engine's; the streamed decode of pcm's stream at
+      16 and 512 blocks, the same samples as each other and
+      Engine.decode; a push's dispatch (StreamingEncoder._dispatch) with
+      no host sync;
+    - shards (meshes of `shards` local shards, no process group): pcm's
+      encode_distributed in cbr and reservoir, the same bytes by both
+      routes and the Engine's, decode_distributed the same samples by both
+      routes; a second call captures nothing; a cbr encode's
+      sharded_encode with no host sync;
+    - .pac stereo and mono (pcm's channels): the encode and the decode by
+      host and device parse, the same bytes and samples by both routes;
+      the encode's dispatch (Engine._baseline_dispatch) and the
+      device-parse decode's (Engine._decode_queue) with no host sync.
+
+    Then, in turns (programs, launches, launches, programs): pcm in 1 s
+    pushes, its 16-block streamed decode, the cbr encode of long_pcm on 1
+    and 4 shards, the .pac encode and device-parse decode of pcm.  Prints
+    the captures, replays by stage, capture seconds and graph pools of
+    each path's Engines, the memory reserved and allocated and the
+    phase's seconds.  Returns the launches of the programmed runs that
+    the gates compare (the "programs-paths" path)."""
+    from pactpu_torch import CodecConfig, StreamingEncoder
+    from pactpu_torch.codec import programs
+    from pactpu_torch.ops import kernels as K
+    from pactpu_torch.parallel import cluster, shard
+    eager = programs.launch_by_launch
+    start = time.perf_counter()
+    shard_dev = "cpu" if DEV == "cpu" else "cuda:0"
+    launches = {k: 0 for k in K.LAUNCHES}
+
+    def counted(fn):
+        sync(torch)
+        K.reset_launches()
+        out = fn()
+        sync(torch)
+        for k, n in K.LAUNCHES.items():
+            launches[k] += n
+        return out
+
+    def both(fn):
+        """fn by programs (its launches counted), then launch by launch."""
+        got = counted(fn)
+        with eager():
+            return got, fn()
+
+    eng = make_engine()
+    gold = eng.encode(pcm)
+    _, want = eng.decode(gold)
+
+    # streams
+    cuts = stream_splits(pcm)["1s"]
+    mid = ckpt_block * 1024 + 123
+    enc_engines, dec_engines = [], []
+    got, ref = both(lambda: stream_encode(pcm, cuts, engines=enc_engines))
+    check(got == ref == gold, "13c: the 1 s stream by programs, launch by "
+          "launch and Engine.encode differ")
+    got, ref = both(lambda: stream_encode(
+        pcm, [0, mid] + [c for c in cuts if c > mid], resume_at=mid,
+        engines=enc_engines))
+    check(got == ref == gold, f"13c: the stream restored after block "
+          f"{ckpt_block} differs by programs or launch by launch")
+    xc = list(range(0, short.shape[0], FS)) + [short.shape[0]]
+    got, ref = both(lambda: stream_encode(short, xc, rate_mode="exact",
+                                          engines=enc_engines))
+    check(got == ref == make_engine(rate_mode="exact").encode(short),
+          "13c: the exact stream by programs, launch by launch and the "
+          "exact Engine differ")
+    for chunk in (16, 512):
+        got, ref = both(lambda: stream_decode(gold, chunk,
+                                              engines=dec_engines))
+        check(np.array_equal(got, ref) and np.array_equal(got, want),
+              f"13c: the {chunk}-block streamed decode differs by programs "
+              "or launch by launch")
+    enc = StreamingEncoder(device=DEV)
+    enc_engines.append(enc._eng)
+    parts = [enc.header(pcm.shape[0]), enc.push(pcm[:FS])]
+    enc._dispatch = no_sync(torch, enc._dispatch)
+    parts.append(enc.push(pcm[FS:2 * FS]))
+    del enc._dispatch
+    parts += [enc.push(pcm[2 * FS:]), enc.flush()]
+    check(b"".join(parts) == gold, "13c: the stream whose push ran with no "
+          "sync differs")
+
+    # shards
+    golds = {"cbr": make_engine(rate_mode="cbr").encode(pcm),
+             "reservoir": gold}
+    meshes = {n: shard.make_mesh([shard_dev] * n) for n in shards}
+    owners = shard.mesh_owners(CodecConfig(), meshes[shards[0]])
+
+    def dist(x, n, mode="cbr"):
+        res = cluster.encode_distributed(x, mesh=meshes[n], rate_mode=mode)
+        return cluster.assemble_stream(res.header,
+                                       [(res.block_start, res.payload)])
+
+    def dist_dec(n):
+        res = cluster.decode_distributed(gold, mesh=meshes[n])
+        return cluster.assemble_pcm([(res.sample_start, res.pcm)],
+                                    res.num_samples)
+
+    for n in shards:
+        for mode, want_s in golds.items():
+            got, ref = both(lambda: dist(pcm, n, mode))
+            check(got == ref == want_s, f"13c: {mode} on {n} shards differs "
+                  "by programs, launch by launch or from the Engine")
+        got, ref = both(lambda: dist_dec(n))
+        check(np.array_equal(got, ref) and max_lsb(got, want)[0] <= 1,
+              f"13c: decode_distributed on {n} shards differs by programs "
+              "or launch by launch")
+    captured = owners[0].programs.captures
+    check(dist(pcm, shards[-1]) == golds["cbr"]
+          and owners[0].programs.captures == captured,
+          "13c: a second distributed call captured again")
+    sharded = shard.sharded_encode
+    shard.sharded_encode = no_sync(torch, sharded)
+    try:
+        got = dist(pcm, shards[-1])
+    finally:
+        shard.sharded_encode = sharded
+    check(got == golds["cbr"], "13c: the shard encode with no sync differs")
+
+    # .pac
+    pac = {}
+    for name, fields in (("stereo-pac", {}),
+                         ("mono-pac", dict(n_channels=1))):
+        cfg = CodecConfig(**fields)
+        e = make_engine(cfg=cfg, fmt="pac")
+        ed = make_engine(cfg=cfg, fmt="pac", decode_parse="device")
+        x = np.ascontiguousarray(pcm[:, :cfg.n_channels])
+        s_, ref = both(lambda: e.encode(x))
+        check(s_ == ref, f"13c: the {name} encode differs by programs and "
+              "launch by launch")
+        for route, d in (("host", e), ("device", ed)):
+            got, ref = both(lambda: d.decode(s_)[1])
+            check(np.array_equal(got, ref),
+                  f"13c: the {name} {route}-parse decode differs by programs "
+                  "and launch by launch")
+        e._baseline_dispatch = no_sync(torch, e._baseline_dispatch)
+        ed._decode_queue = no_sync(torch, ed._decode_queue)
+        check(e.encode(x) == s_ and np.array_equal(ed.decode(s_)[1], got)
+              and np.array_equal(e.decode(s_)[1], got),
+              f"13c: the {name} encode or decode with no sync differs")
+        del e._baseline_dispatch, ed._decode_queue
+        pac[name] = (e, ed, x, s_)
+    correct_s = time.perf_counter() - start
+
+    e, ed, x, s_ = pac["stereo-pac"]
+    for n in (1, shards[-1]):
+        dist(long_pcm, n)                      # the long file's captures
+    timing = {
+        "stream_1s_encode_s": in_turns(torch, by_route(
+            lambda: stream_encode(pcm, cuts))),
+        "stream_16_decode_s": in_turns(torch, by_route(
+            lambda: stream_decode(gold, 16))),
+        **{f"shards_{n}_cbr_long_s": in_turns(torch, by_route(
+            lambda n=n: dist(long_pcm, n))) for n in (1, shards[-1])},
+        "pac_encode_s": in_turns(torch, by_route(lambda: e.encode(x))),
+        "pac_device_decode_s": in_turns(torch, by_route(
+            lambda: ed.decode(s_)))}
+    sync(torch)
+    stats = dict(stream=program_stats(enc_engines + dec_engines),
+                 shard=program_stats(owners),
+                 pac=program_stats([v for p in pac.values() for v in p[:2]]))
+    for path, stages in PATH_STAGES.items():
+        check(not programs._card(eng) or all(
+            stats[path]["replays"].get(st, 0) > 0 for st in stages),
+            f"13c: a {path} stage never replayed its program: "
+            f"{stats[path]['replays']}")
+    say("13c-program-paths", blocks=n_blocks(pcm),
+        long_blocks=n_blocks(long_pcm), shards=list(shards), **stats,
+        second_call_captures=0, **timing,
+        memory_mb=({k: getattr(torch.cuda, f"memory_{k}")() / 2 ** 20
+                    for k in ("reserved", "allocated")}
+                   if DEV != "cpu" else None),
+        correctness_s=correct_s, phase_s=time.perf_counter() - start,
+        launches={k: v for k, v in launches.items() if v})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3846,6 +4125,7 @@ def main() -> int:
         return 2
     smi = phase0(torch)
     files = [synth(10.0, seed) for seed in (1, 2, 3)] + [synth(60.0, 4)]
+    long_pcm = synth(600.0, 5)
     eng = Engine(device="cuda", rate_mode="reservoir")
     eng_dev = Engine(device="cuda", decode_parse="device")
     res = phase1(torch, device_tables(eng.cfg, "cuda"), files[-1],
@@ -3861,12 +4141,13 @@ def main() -> int:
                "exact": phase8(torch, make, files[-1]),
                **phase9(torch, make, files[:2]),
                "stream": phase10(torch, make, files[-1], files[:3]),
-               "distributed": phase11(torch, make, files[-1],
-                                      synth(600.0, 5)),
+               "distributed": phase11(torch, make, files[-1], long_pcm),
                "surface": phase12(torch, files[0], files[-1]),
                "programs": phase13(torch, make, files),
                "programs-modes": phase13_modes(torch, make, files[0],
-                                               files[-1])}
+                                               files[-1]),
+               "programs-paths": phase13_paths(torch, make, files[-1],
+                                               files[0], long_pcm)}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda",
              source=f"pactpu_torch/csrc/{REPLACES[name][0]}",

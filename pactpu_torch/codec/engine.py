@@ -55,11 +55,12 @@ precision, as pactpu does.
 On the card each stage of a chunk (the analysis, the measurement pass
 with K11, the exact mode's cost tables (K10) and scan (K7), the final
 pass with the pack and the dense compaction or the host packer's fields,
-and the decode chunk of either parse route) runs as a CUDA-graph replay,
-captured once a shape, for every .wak configuration
-(pactpu_torch.codec.programs; .pac and debug_checks stay launch by
-launch).  On the CPU, or with `Engine.use_programs` set to False, the
-stage functions run directly, launch by launch.
+the .pac coder's baseline encode of a batch, and the decode chunk of
+either parse route) runs as a CUDA-graph replay, captured once a shape,
+for every configuration of either format (pactpu_torch.codec.programs;
+debug_checks stays launch by launch).  On the CPU, or with
+`Engine.use_programs` set to False, the stage functions run directly,
+launch by launch.
 
 Float32 products run in full float32: the engine turns TF32 off
 (`torch.backends.cuda.matmul.allow_tf32`, `torch.backends.cudnn.allow_tf32`)
@@ -792,10 +793,11 @@ class Engine:
     def _run_stage(self, stage: str, programmed: bool, blocks: int,
                    key: tuple, fn, args):
         """fn(*args), one stage of a chunk of `blocks` blocks: a replay of
-        the stage's program where `programmed` (programs.encode_programs or
-        decode_programs) and the chunk has the size of one of _TAIL_BUCKETS
-        (a stream's pieces of other sizes, and a batch past the default
-        chunking, run directly), else fn on args uploaded to the device.
+        the stage's program where `programmed` (programs.encode_programs,
+        decode_programs or shard_programs) and the chunk has the size of
+        one of _TAIL_BUCKETS (a chunk_blocks of another size, and a batch
+        past the default chunking, run directly), else fn on args uploaded
+        to the device.
         key: what besides the inputs' shapes decides the stage (fn reads
         nothing else); args: tensors or host arrays."""
         if programmed and blocks in _TAIL_BUCKETS:
@@ -1093,22 +1095,47 @@ class Engine:
         return b"".join(parts)
 
     def _encode_baseline(self, pcm: np.ndarray) -> bytes:
-        """The .pac payload: encode_baseline batch by batch (the default
-        chunking's, whatever chunk_blocks is: no rate control spans them,
-        and the bytes do not depend on it, as in _analyze), ONE download
-        of every batch's side info and mantissas, host serialization
-        (native pack_file, the baseline layout)."""
+        """The .pac payload: the PCM uploaded once, encode_baseline batch
+        by batch (the default chunking's, whatever chunk_blocks is: no
+        rate control spans them, and the bytes do not depend on it, as in
+        _analyze), then _baseline_finish."""
+        return self._baseline_finish(self._baseline_dispatch(
+            self._upload_pcm(pcm, _default_batches)))
+
+    def _baseline_dispatch(self, up: dict) -> dict:
+        """The device half of a .pac encode from its uploaded PCM (an
+        _upload_pcm result of the default batches): each batch's
+        encode_baseline, in float32 as pactpu, as one program (stage
+        "baseline", pactpu's _encode_baseline_fn) where
+        programs.encode_programs says so, and every batch's side info and
+        mantissas joined for one download; nothing waited for.  Returns
+        dict(b, host: i32[b C, 1 + 2 bands + N] on the device)."""
         cfg = self.cfg
-        c, half = cfg.n_channels, cfg.n_mdct_lines
-        self._last = {}
-        b, _, frames = self._frames(pcm, _default_batches)
+        c, half, offs = cfg.n_channels, cfg.n_mdct_lines, up["offs"]
         dev = self.consts("f32")          # as pactpu: .pac encodes in f32
-        outs = [encode_baseline(cfg, f, dev) for f in frames]
-        host = torch.cat([torch.cat([o["overall"][..., None], o["bits"],
-                                     o["sf"], o["mant"]], -1)
-                          for o in outs])[:b].reshape(b * c, -1)
-        host = host.cpu().numpy()
-        nb = cfg.n_bands
+        programmed = programs.encode_programs(self)["baseline"]
+        self._last = {}
+
+        def stage(x):
+            o = encode_baseline(cfg, _overlap_frames(x, half), dev)
+            return torch.cat([o["overall"][..., None], o["bits"], o["sf"],
+                              o["mant"]], -1)
+
+        outs = [self._run_stage(
+            "baseline", programmed, offs[k + 1] - offs[k], (cfg, "f32"),
+            stage, (up["pcm"][:, offs[k] * half:(offs[k + 1] + 1) * half],))
+            for k in range(len(offs) - 1)]
+        b = up["b"]
+        return dict(b=b, host=torch.cat(outs)[:b].reshape(b * c, -1))
+
+    def _baseline_finish(self, st: dict) -> bytes:
+        """Blocking half of a .pac encode: ONE download of every batch's
+        side info and mantissas, host serialization (native pack_file,
+        the baseline layout)."""
+        cfg = self.cfg
+        c, half, nb = cfg.n_channels, cfg.n_mdct_lines, cfg.n_bands
+        b = st["b"]
+        host = st["host"].cpu().numpy()
         ba = host[:, 1:1 + nb]
         return native.pack_file(
             np.asarray(cfg.band_layout.n_lines, np.int32), cfg.n_scale_bits,
@@ -1411,11 +1438,24 @@ class Engine:
 
     def _decode_launch(self, staged: dict):
         """Device half of a decode dispatch: upload each chunk of a
-        _decode_staging result and queue its decode.  Returns (cfg,
-        num_samples, b, ola, n_bad): ola i16[b + 1 (+ flag rows), C, N] is
-        the overlap-added PCM; on the device-parse route the n_bad
-        per-channel-block corruption flags ride behind it as further rows,
-        so that one download brings both."""
+        _decode_staging result (_decode_upload) and queue its decode
+        (_decode_queue)."""
+        return self._decode_queue(self._decode_upload(staged))
+
+    def _decode_upload(self, staged: dict) -> dict:
+        """A _decode_staging result with its chunks' host arrays on the
+        device: the only host-to-device copies of a decode."""
+        return {**staged, "chunk_args": [tuple(self._upload(a) for a in args)
+                                         for args in staged["chunk_args"]]}
+
+    def _decode_queue(self, staged: dict):
+        """Queue every chunk's decode of a _decode_staging result (on the
+        card with its chunks uploaded by _decode_upload, no host sync and
+        no copy from the host happens here).  Returns (cfg, num_samples,
+        b, ola, n_bad): ola i16[b + 1 (+ flag rows), C, N] is the
+        overlap-added PCM; on the device-parse route the n_bad
+        per-channel-block corruption flags ride behind it as further
+        rows, so that one download brings both."""
         cfg, b = staged["cfg"], staged["b"]
         c, half = cfg.n_channels, cfg.n_mdct_lines
         dt = self.consts(cfg=cfg)["basis"].dtype

@@ -46,11 +46,16 @@ the card a stage function here is captured once a key into a
 
 Which of an Engine's stages run as programs is decided stage by stage
 from its configuration alone, before any capture (encode_programs,
-decode_programs), as pactpu compiles a jit program for each stage of
-every configuration: on the CPU, or with `Engine.use_programs` False,
-every stage function runs directly, launch by launch; on the card the
-.pac coder and debug_checks stay launch by launch, and every .wak
-configuration runs its stages as programs.
+decode_programs, shard_programs), as pactpu compiles a jit program for
+each stage of every configuration: on the CPU, or with
+`Engine.use_programs` False, every stage function runs directly, launch
+by launch; on the card every stage of every configuration runs as a
+program, the .pac coder's and a stream's included, except with
+debug_checks (host checks between the passes, by design).  The shard
+paths (pactpu_torch.parallel.shard) run theirs through an Engine that
+owns a shard device's tables and programs (shard.owner).  Whatever the
+stage, a chunk whose block count is none of the Engine's buckets runs
+directly (Engine._run_stage).
 """
 
 from __future__ import annotations
@@ -86,33 +91,72 @@ class CaptureError(RuntimeError):
 SIDE_STAGES = frozenset({"cost"})
 
 
+# set inside launch_by_launch(): every stage of every Engine runs directly
+_all_launch_by_launch = False
+
+
+@contextlib.contextmanager
+def launch_by_launch():
+    """Inside it every stage of every Engine runs launch by launch, as with
+    Engine.use_programs False: the Engines that streams and the shard
+    owners hold too (the eager chain that chip_smoke.py and the card
+    tests hold the programs to).  Not thread-safe: it is process-wide."""
+    global _all_launch_by_launch
+    saved, _all_launch_by_launch = _all_launch_by_launch, True
+    try:
+        yield
+    finally:
+        _all_launch_by_launch = saved
+
+
 def _card(eng) -> bool:
     """Whether any of eng's stages may run as a program: on the card, with
-    eng.use_programs."""
-    return eng.device.type == "cuda" and eng.use_programs
+    eng.use_programs, outside launch_by_launch()."""
+    return (eng.device.type == "cuda" and eng.use_programs
+            and not _all_launch_by_launch)
 
 
 def encode_programs(eng) -> dict:
     """Which of an Engine's encode stages run as programs, stage by stage,
     as pactpu compiles one for each (_chunk_analyze_fn, _reservoir_scan_fn,
-    _finalize_fn for every allocator and pack width, _cost_fn and
-    _extras_fn): on the card with eng.use_programs, for .wak, "analyze"
-    and "final" in every rate mode, allocator and packing (device_pack=
-    False: pack width 0); "measure" (the measurement pass with K11) in the
-    reservoir mode; "cost" (K10) and "exact_scan" (K7) in the exact mode.
-    The .pac coder and debug_checks (host checks between the passes, by
-    design) run every stage launch by launch."""
-    on = _card(eng) and eng.fmt == "wak" and not eng.debug_checks
-    exact = on and eng.rate_mode == "exact"
-    return dict(analyze=on, measure=on and eng.rate_mode == "reservoir",
-                cost=exact, exact_scan=exact, final=on)
+    _finalize_fn for every allocator and pack width, _cost_fn, _extras_fn
+    and _encode_baseline_fn): on the card with eng.use_programs, for .wak,
+    "analyze" and "final" in every rate mode, allocator and packing
+    (device_pack=False: pack width 0); "measure" (the measurement pass
+    with K11) in the reservoir mode; "cost" (K10) and "exact_scan" (K7) in
+    the exact mode; for .pac, "baseline" (the whole baseline encode of a
+    batch).  A stream's pushes run the same stages.  debug_checks (host
+    checks between the passes, by design) runs every stage launch by
+    launch."""
+    on = _card(eng) and not eng.debug_checks
+    wak = on and eng.fmt == "wak"
+    exact = wak and eng.rate_mode == "exact"
+    return dict(analyze=wak, measure=wak and eng.rate_mode == "reservoir",
+                cost=exact, exact_scan=exact, final=wak,
+                baseline=on and eng.fmt == "pac")
 
 
 def decode_programs(eng) -> bool:
-    """Whether an Engine's decode chunks run as programs: on the card,
-    with eng.use_programs, for .wak on either parse route (.pac's device
-    parse syncs)."""
-    return _card(eng) and eng.fmt == "wak"
+    """Whether an Engine's decode stages run as programs: on the card,
+    with eng.use_programs, for .wak and .pac on either parse route
+    ("decode", "decode_device_parse") and a stream's synthesis
+    ("synthesize")."""
+    return _card(eng)
+
+
+# the stages of a shard device's owner (pactpu's sharded_*_fn): the
+# analysis is the Engine's own stage
+SHARD_STAGES = ("analyze", "shard_measure", "shard_final", "shard_decode",
+                "shard_synthesize")
+
+
+def shard_programs(eng) -> dict:
+    """Which stages of the shard paths run as programs on a shard device's
+    owner (pactpu_torch.parallel.shard.owner), stage by stage, as pactpu
+    compiles sharded_encode_fn, sharded_measure_fn, sharded_decode_fn and
+    sharded_decode_payload_fn: all of them on the card with
+    eng.use_programs.  The collectives run between the replays."""
+    return dict.fromkeys(SHARD_STAGES, _card(eng))
 
 
 @lru_cache(maxsize=None)
@@ -262,6 +306,11 @@ class Programs:
         if len(cache) > MAX_PROGRAMS:
             cache.popitem(last=False)
         return warm
+
+    def replays(self) -> dict:
+        """Replays of each stage's programs, by stage."""
+        return {stage: sum(p.replays for p in cache.values())
+                for stage, cache in self._stages.items()}
 
     def items(self, stage: str) -> list:
         """(key, program) of each of a stage's programs, least recently

@@ -18,8 +18,10 @@ depend on the size of the batch it runs in (cuBLAS and cuFFT pick their
 kernels by batch size) and on its memory layout, so a stream analyses each
 block, and synthesizes it, at its own row of a batch of the size and the
 layout of the batch that holds it in the Engine's default chunking
-(`engine._default_batches` of the file's block count), zero frames filling
-the rows a push does not hold.  The
+(`engine._default_batches` of the file's block count): the analysis takes
+the batch's PCM window as the Engine's "analyze" stage does, the push's
+samples at their rows and zeros elsewhere, and the synthesis zero fields
+in the rows a push does not hold.  The
 encoder takes the block count from `header(num_samples)`, the decoder from
 the stream's header.  Without it (the checkpoint of a pactpu encoder, or
 no header written) the batches are DEFAULT_CHUNK_BLOCKS long, and the
@@ -29,8 +31,15 @@ that length.
 The rate control, the final pass and the payload framing are the Engine's
 own (`Engine._rate_control`, `_finish_encode`), with the reservoir's
 (bitDeposit, extraBits) carry (kernel K7's in the exact mode) handed from
-push to push; the decoder parses on the host (the native runtime), as
+push to push; a push's blocks run them in chunks of the Engine's sizes,
+the last padded with zero rows to the next bucket as a file's tail is.
+The decoder parses on the host (the native runtime), as
 `Engine(decode_parse="host")` does, and extracts the codes with kernel K1.
+On the card every stage of a push (the analysis, the measurement pass
+with K11, K10 and K7 in the exact mode, the final pass, the synthesis)
+replays a program of the stream's Engine (pactpu_torch.codec.programs),
+the analysis the very program that `Engine.encode` replays for that batch
+size.
 """
 
 from __future__ import annotations
@@ -42,10 +51,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from pactpu_torch.codec import programs
 from pactpu_torch.codec.engine import (
-    DEFAULT_CHUNK_BLOCKS, Engine, _default_batches, _offsets, _overlap_add,
-    _overlap_frames, _recut, analyze, resolve_device, synthesize)
+    DEFAULT_CHUNK_BLOCKS, Engine, _chunk_sizes, _default_batches, _offsets,
+    _overlap_add, _overlap_frames, _recut, analyze, resolve_device,
+    synthesize)
 from pactpu_torch.codec.header import read_header, write_header
 from pactpu_torch.ops import quantize as q
 from pactpu_torch.utils.config import CodecConfig
@@ -102,27 +114,48 @@ def batch_pieces(k0: int, k1: int, total: Optional[int]) -> list:
 
 
 def analyze_blocks(cfg: CodecConfig, seq: torch.Tensor, k0: int,
-                   total: Optional[int], dev: dict) -> list:
+                   total: Optional[int], eng: Engine) -> list:
     """The analyses of the blocks [k0, k0 + m) of a file of `total` blocks,
-    from their int16 PCM seq [C, (m + 1) * half] on the device, the block
-    before them first (zeros before block 0).  Each block is analysed at
-    its own row of a zero batch of the size and memory layout of the batch
-    that holds it in the Engine's default chunking (batch_pieces): the
-    transpose of a [C, size, 2N] buffer, as Engine._frames cuts it
-    (torch.matmul multiplies such frames block by block and a contiguous
-    batch in one product, and the two round differently).  Returns one
-    analysis dict a piece, in block order."""
+    from their int16 PCM seq [C, (m + 1) * half] on eng's device, the
+    block before them first (zeros before block 0).  Each batch that holds
+    some of them in the Engine's default chunking (batch_pieces) runs as
+    the Engine runs it: its PCM window i16[C, (size + 1) * half], the
+    blocks' samples at their rows and zeros elsewhere, through eng's
+    "analyze" stage (Engine._run_stage; on the card a replay of the
+    program that Engine.encode replays for that batch size), which frames
+    it.  The rows outside the blocks (at the edges frames of half the
+    blocks' samples) are dropped: each row's analysis is its own.  eng:
+    the stream's Engine, or a shard device's owner (parallel.shard.owner),
+    whose tables the analysis reads.  Returns one analysis dict a piece,
+    its blocks' rows, in block order."""
     half = cfg.n_mdct_lines
-    frames = _overlap_frames(seq, half).transpose(0, 1)      # [C, m, 2N]
-    c, m = frames.shape[0], frames.shape[1]
+    m = seq.shape[1] // half - 1
+    dev = eng.consts()
+    programmed = programs.encode_programs(eng)["analyze"]
+
+    def stage(x):
+        return analyze(cfg, _overlap_frames(x, half), dev)
+
     analyses = []
     for k, hi, start, size in batch_pieces(k0, k0 + m, total):
-        lo = k - start
-        batch = frames.new_zeros((c, size, 2 * half))
-        batch[:, lo:lo + hi - k] = frames[:, k - k0:hi - k0]
-        a = analyze(cfg, batch.transpose(0, 1), dev)
-        analyses.append({key: v[lo:lo + hi - k] for key, v in a.items()})
+        lo, n = k - start, hi - k
+        window = F.pad(seq[:, (k - k0) * half:(hi - k0 + 1) * half],
+                       (lo * half, (size - lo - n) * half))
+        a = eng._run_stage("analyze", programmed, size, (cfg,), stage,
+                           (window,))
+        analyses.append({key: v[lo:lo + n] for key, v in a.items()})
     return analyses
+
+
+def padded_rows(a: dict, size: int) -> dict:
+    """A dict of per-block tensors (an analysis, a chunk's fields) grown
+    to `size` rows with zero rows behind its own (a chunk's padding, as a
+    file's tail chunk has)."""
+    n = next(iter(a.values())).shape[0]
+    if n == size:
+        return a
+    return {k: torch.cat([v, v.new_zeros((size - n, *v.shape[1:]))])
+            for k, v in a.items()}
 
 
 def _placed(t: torch.Tensor, lo: int, size: int) -> torch.Tensor:
@@ -148,10 +181,11 @@ class StreamingEncoder:
     same config.  `header()` needs the total sample count (the header
     stores it, reference codec/pacfile.py:231-271); its first call also
     fixes the batches the blocks are analysed in.  rate_mode "cbr",
-    "reservoir" or "exact"; chunk_blocks bounds the batches of a push's
-    rate control and final pass (None: one a batch of the analysis), and
-    the bytes do not depend on it; device as Engine's (the card unless the
-    CPU is asked for)."""
+    "reservoir" or "exact"; chunk_blocks bounds the chunks of a push's
+    rate control and final pass (None: as the Engine's of a file of the
+    push's length, at most DEFAULT_CHUNK_BLOCKS), and the bytes do not
+    depend on it; device as Engine's (the card unless the CPU is asked
+    for)."""
 
     def __init__(self, cfg: Optional[CodecConfig] = None,
                  rate_mode: str = "reservoir",
@@ -166,6 +200,9 @@ class StreamingEncoder:
         self._rem = np.zeros((0, c), np.int16)       # sub-block remainder
         self._deposit = 0                            # Huffman bitDeposit
         self._extra = 0                              # carried extraBits
+        # the same carry as the device tensor the last push left (None
+        # before a push and after a restore): the next push starts from it
+        self._carry = None
         self._n_samples = 0
         self._n_blocks = 0
         self._flushed = False
@@ -212,25 +249,50 @@ class StreamingEncoder:
     def _encode_blocks(self, blocks: np.ndarray) -> bytes:
         """Encode complete int16 blocks [C, m, half] following the tail;
         advances all sequential state."""
-        eng, cfg = self._eng, self.cfg
+        return self._finish(self._dispatch(self._upload(blocks)), blocks)
+
+    def _upload(self, blocks: np.ndarray) -> torch.Tensor:
+        """The PCM of a push's blocks [C, m, half] after the tail, i16[C,
+        (m + 1) half] on the device: the push's one host-to-device copy."""
         c, m, half = blocks.shape
         seq = np.concatenate([self._tail, blocks.reshape(c, m * half)], 1)
-        analyses = analyze_blocks(cfg, torch.from_numpy(seq).to(eng.device),
-                                  self._n_blocks, self._total, eng.consts())
-        sizes = [a["smr"].shape[0] for a in analyses]
-        if eng.chunk_blocks:
-            n = eng.chunk_blocks
-            cut = [n] * (m // n) + ([m % n] if m % n else [])
-            analyses = _recut(analyses, sizes, _offsets(cut))
-            sizes = cut
-        st, carry = eng._rate_control(analyses, m, sizes,
-                                      (self._deposit, self._extra))
-        data = eng._finish_encode(st)
+        return torch.from_numpy(seq).to(self._eng.device)
+
+    def _dispatch(self, seq: torch.Tensor):
+        """The device half of a push from its uploaded PCM (_upload): the
+        analysis batch by batch (analyze_blocks), then the rate control
+        and the final pass (Engine._rate_control) in the Engine's chunks
+        of the push's m blocks (_chunk_sizes), the last padded with zero
+        rows to the next bucket size, its valid prefix m.  On the card
+        every stage is a program replay, and nothing waits for the device
+        or copies from the host; the reservoir's carry comes from the last
+        push as a device tensor.  Returns _rate_control's (staged, carry
+        tensor)."""
+        eng, cfg = self._eng, self.cfg
+        m = seq.shape[1] // cfg.n_mdct_lines - 1
+        pieces = analyze_blocks(cfg, seq, self._n_blocks, self._total, eng)
+        sizes = _chunk_sizes(m, eng._chunk(m))
+        offs = _offsets(sizes)
+        real = [min(s, m - lo) for s, lo in zip(sizes, offs)]
+        chunks = _recut(pieces, [p["smr"].shape[0] for p in pieces],
+                        _offsets(real))
+        return eng._rate_control(
+            [padded_rows(a, s) for a, s in zip(chunks, sizes)], m, sizes,
+            (self._deposit, self._extra) if self._carry is None
+            else self._carry)
+
+    def _finish(self, staged, blocks: np.ndarray) -> bytes:
+        """Blocking half of a push: the payload download and framing
+        (Engine._finish_encode), then the carry read and the state
+        advanced past the push's blocks."""
+        st, carry = staged
+        data = self._eng._finish_encode(st)
         if torch.is_tensor(carry):
+            self._carry = carry
             carry = carry.tolist()
         self._deposit, self._extra = (int(v) for v in carry)
         self._tail = np.ascontiguousarray(blocks[:, -1])
-        self._n_blocks += m
+        self._n_blocks += blocks.shape[1]
         return data
 
     # -- checkpoint/resume -------------------------------------------------
@@ -374,7 +436,8 @@ class StreamingDecoder:
         """Decode the first m pending blocks: native parse and code
         repack on the host, then each batch piece (batch_pieces) through
         K1 and the synthesis at the block's rows of a batch of the Engine's
-        size, and the overlap-add from the carry."""
+        size (stage "synthesize": on the card a program replay), and the
+        overlap-add from the carry."""
         cfg, eng = self._cfg, self._eng
         c, half = cfg.n_channels, cfg.n_mdct_lines
         if m == 0:
@@ -394,6 +457,12 @@ class StreamingDecoder:
                           m, c)),
                       lrms=up(parsed["lrms"] != 0))
         dev = eng.consts()
+        programmed = programs.decode_programs(eng)
+
+        def stage(ba, sf, words, overall, lrms):
+            return synthesize(cfg, ba, sf, words.reshape(-1, n_words),
+                              overall, lrms, dev)
+
         k0 = self._blk_idx
         outs = []
         for k, hi, start, size in batch_pieces(
@@ -401,9 +470,9 @@ class StreamingDecoder:
             lo = k - start
             p = {key: _placed(v[k - k0:hi - k0], lo, size)
                  for key, v in fields.items()}
-            td = synthesize(cfg, p["ba"], p["sf"],
-                            p["words"].reshape(size * c, n_words),
-                            p["overall"], p["lrms"], dev)
+            td = eng._run_stage(
+                "synthesize", programmed, size, (cfg,), stage,
+                (p["ba"], p["sf"], p["words"], p["overall"], p["lrms"]))
             pcm, self._carry = _overlap_add(td[lo:lo + hi - k], self._carry)
             outs.append(pcm)
         ola = torch.cat(outs).cpu().numpy()[1 if k0 == 0 else 0:]

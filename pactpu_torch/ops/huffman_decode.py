@@ -164,9 +164,11 @@ def parse_rows_raw(cfg, words: torch.Tensor, nbits: torch.Tensor,
     n_lines = lay["n_lines"]
     n_bands = n_lines.shape[0]
     cur = torch.full((r, 1), nsb, dtype=torch.int32, device=dev)
-    side_off = torch.tensor([0, msb], dtype=torch.int32, device=dev)
-    side_w = torch.tensor([[msb, nsb]], dtype=torch.int32,
-                          device=dev).expand(r, 2)
+    # made on the device (no host value copied up: the stage is captured
+    # into a CUDA graph on the card): offsets (0, msb), widths (msb, nsb)
+    two = torch.arange(2, dtype=torch.int32, device=dev)
+    side_off = two * msb
+    side_w = torch.where(two == 0, msb, nsb).to(torch.int32).expand(r, 2)
     ba, sf, start = [], [], []
     for band in range(n_bands):
         off = cur + side_off

@@ -40,7 +40,7 @@ import torch.distributed as dist
 
 from pactpu_torch import native
 from pactpu_torch.codec import engine as E
-from pactpu_torch.codec.engine import finalize, reservoir_extras
+from pactpu_torch.codec.engine import reservoir_extras
 from pactpu_torch.codec.header import read_header, write_header
 from pactpu_torch.codec.stream import analyze_blocks
 from pactpu_torch.ops import huffman_decode as hd
@@ -336,23 +336,24 @@ def encode_range(pcm: np.ndarray, block_start: int, n_real: int,
     lead = (np.zeros((c, half), np.int16) if lo == 0
             else glob[:, (lo - 1) * half:lo * half])
     y = np.concatenate([lead, glob[:, lo * half:]], axis=1)
-    dev = E.device_tables(cfg, dev_t)
+    eng = shard.owner(cfg, "f32", dev_t)
+    dev = eng.consts()
     parts = analyze_blocks(cfg, torch.from_numpy(y).to(dev_t), lo,
-                           -(-pcm.shape[0] // half) + 1, dev)
-    a = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+                           -(-pcm.shape[0] // half) + 1, eng)
 
     extras = torch.zeros(n_real, device=dev_t)
     if rate_mode == "reservoir":
-        meas = finalize(cfg, a, extras, dev, measure_only=True)
+        meas = shard._measure_pieces(cfg, eng, dev, parts)
         ex, _ = reservoir_extras(meas["savings"].cpu().numpy(),
                                  meas["leftover"].cpu().numpy(),
                                  cfg.reservoir_withdraw_divisor)
         extras = torch.from_numpy(ex.astype(np.float32)).to(dev_t)
 
-    out = finalize(cfg, a, extras, dev, pack_words=E.PACK_WORDS)
+    out, _ = shard._final_pieces(cfg, eng, dev, parts, extras, E.PACK_WORDS)
     nbits = out["nbits"].cpu().numpy()
     if int(nbits.max(initial=0)) > 32 * E.PACK_WORDS:
-        out = finalize(cfg, a, extras, dev, pack_words=E.PACK_WORDS_MAX)
+        out, _ = shard._final_pieces(cfg, eng, dev, parts, extras,
+                                    E.PACK_WORDS_MAX)
         nbits = out["nbits"].cpu().numpy()
     return native.assemble_rows(E._host_u32(out["words"]), nbits)
 

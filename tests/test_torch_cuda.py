@@ -1299,3 +1299,104 @@ def test_capture_off_the_current_device(cuda):
     with torch.cuda.device(0):
         got = [eng.encode(pcm) for _ in range(3)]
     assert got == [want] * 3
+
+
+def test_stream_push_replays_with_no_sync(cuda):
+    """A StreamingEncoder's pushes through its Engine's programs (the
+    analysis, the measurement pass with K11, the final pass): the stream
+    of 1 s pushes is the bytes of the same stream launch by launch and of
+    Engine.encode, a push's dispatch (StreamingEncoder._dispatch) runs
+    with no host sync, and the streamed decode's synthesis replays a
+    program and gives the launch-by-launch samples."""
+    from pactpu_torch import Engine, StreamingEncoder
+    from pactpu_torch.codec import programs
+    fs = chip_smoke.FS
+    pcm = chip_smoke.synth(4.0, 16)
+    gold = Engine(device=cuda).encode(pcm)
+    cuts = list(range(0, pcm.shape[0], fs)) + [pcm.shape[0]]
+    with programs.launch_by_launch():
+        ref = chip_smoke.stream_encode(pcm, cuts)
+        ref_pcm = chip_smoke.stream_decode(gold, 16)
+    engines = []
+    assert chip_smoke.stream_encode(pcm, cuts, engines=engines) == ref == gold
+    assert all(engines[0].programs.replays()[st] > 0
+               for st in ("analyze", "measure", "final"))
+    enc = StreamingEncoder(device=cuda)
+    parts = [enc.header(pcm.shape[0]), enc.push(pcm[:fs])]
+    enc._dispatch = chip_smoke.no_sync(torch, enc._dispatch)
+    parts.append(enc.push(pcm[fs:2 * fs]))
+    del enc._dispatch
+    parts += [enc.push(pcm[2 * fs:]), enc.flush()]
+    assert b"".join(parts) == gold
+    decoders = []
+    assert np.array_equal(chip_smoke.stream_decode(gold, 16,
+                                                   engines=decoders), ref_pcm)
+    assert decoders[0].programs.replays()["synthesize"] > 0
+
+
+def test_shard_encode_replays_with_no_sync(cuda):
+    """encode_distributed on a mesh of three shards of one card through
+    the shard devices' owner: the bytes of the same encode launch by
+    launch and of the cbr Engine; a second call captures nothing; the
+    shards' dispatch (shard.sharded_encode) runs with no host sync; and
+    decode_distributed gives the launch-by-launch samples."""
+    from pactpu_torch import Engine
+    from pactpu_torch.codec import programs
+    from pactpu_torch.parallel import cluster, shard
+    pcm = chip_smoke.synth(8.0, 18)
+    mesh = shard.make_mesh(["cuda:0"] * 3)
+    gold = Engine(device=cuda, rate_mode="cbr").encode(pcm)
+
+    def dist():
+        res = cluster.encode_distributed(pcm, mesh=mesh, rate_mode="cbr")
+        return cluster.assemble_stream(res.header, [(0, res.payload)])
+
+    def dist_dec():
+        res = cluster.decode_distributed(gold, mesh=mesh)
+        return res.pcm
+
+    with programs.launch_by_launch():
+        ref, ref_pcm = dist(), dist_dec()
+    assert dist() == ref == gold
+    own = shard.mesh_owners(CodecConfig(), mesh)[0]
+    captured = own.programs.captures
+    sharded = shard.sharded_encode
+    shard.sharded_encode = chip_smoke.no_sync(torch, sharded)
+    try:
+        assert dist() == gold
+    finally:
+        shard.sharded_encode = sharded
+    assert own.programs.captures == captured
+    assert np.array_equal(dist_dec(), ref_pcm)
+    replays = own.programs.replays()
+    assert all(replays[st] > 0 for st in ("analyze", "shard_final",
+                                          "shard_decode"))
+
+
+@pytest.mark.parametrize("channels", [2, 1])
+def test_pac_replays_with_no_sync(cuda, channels):
+    """The .pac coder through programs ("baseline", and the decode by host
+    and device parse): the bytes and samples of the same Engines launch
+    by launch; the encode's dispatch (Engine._baseline_dispatch) and the
+    device-parse decode's (Engine._decode_queue) run with no host sync."""
+    from pactpu_torch import Engine
+    from pactpu_torch.codec import programs
+    cfg = CodecConfig(n_channels=channels)
+    pcm = np.ascontiguousarray(chip_smoke.synth(6.0, 19)[:, :channels])
+    eng = Engine(device=cuda, cfg=cfg, fmt="pac")
+    dev = Engine(device=cuda, cfg=cfg, fmt="pac", decode_parse="device")
+    with programs.launch_by_launch():
+        want = eng.encode(pcm)
+        want_pcm = eng.decode(want)[1]
+        assert np.array_equal(dev.decode(want)[1], want_pcm)
+    for _ in range(2):
+        assert eng.encode(pcm) == want
+        assert np.array_equal(eng.decode(want)[1], want_pcm)
+        assert np.array_equal(dev.decode(want)[1], want_pcm)
+    eng._baseline_dispatch = chip_smoke.no_sync(torch,
+                                                eng._baseline_dispatch)
+    dev._decode_queue = chip_smoke.no_sync(torch, dev._decode_queue)
+    assert eng.encode(pcm) == want
+    assert np.array_equal(dev.decode(want)[1], want_pcm)
+    assert eng.programs.replays()["baseline"] > 0
+    assert dev.programs.replays()["decode_device_parse"] > 0

@@ -278,14 +278,14 @@ def test_route_from_the_config():
 
     def on(*stages):         # encode_programs' answer, stage by stage
         return {s: s in stages for s in ("analyze", "measure", "cost",
-                                         "exact_scan", "final")}
+                                         "exact_scan", "final", "baseline")}
 
     res, exact = on("analyze", "measure", "final"), on(
         "analyze", "cost", "exact_scan", "final")
     cases = [({}, res, P), (dict(rate_mode="cbr"), on("analyze", "final"), P),
              (dict(peak="weighted"), res, P),
              (dict(rate_mode="exact"), exact, P),
-             (dict(fmt="pac", rate_mode="cbr"), on(), L),
+             (dict(fmt="pac", rate_mode="cbr"), on("baseline"), P),
              (dict(device_pack=False), res, P),
              (dict(debug_checks=True), on(), P),
              (dict(alloc="closed_form"), res, P), (dict(device="cpu"), on(), L),
@@ -336,9 +336,10 @@ def test_engine_through_programs(cpu_programs, rate_mode):
 
 
 def test_odd_sizes_run_directly(cpu_programs):
-    """A stream's pieces whose sizes are no tail bucket (8 blocks here)
-    run directly: only bucket sizes get programs, and the stream is the
-    Engine's bytes."""
+    """A stream's pushes whose sizes are no tail bucket (8 blocks here)
+    run padded to the next bucket: only bucket sizes get programs (the
+    size of the chunk's rows, the first input's first dimension), and the
+    stream is the Engine's bytes."""
     pcm = fixture_pcm()[:20000]
     enc = tstream.StreamingEncoder(device="cpu")
     data = (enc.header(pcm.shape[0]) + enc.push(pcm[:9000])
@@ -346,9 +347,9 @@ def test_odd_sizes_run_directly(cpu_programs):
     direct = Engine(device="cpu")
     direct.use_programs = False
     assert data == direct.encode(pcm)
-    built = [k[1][0][0] for stage in ("measure", "final")
+    built = [k[1][0][0][0] for stage in ("measure", "final")
              for k, _ in enc._eng.programs.items(stage)]
-    assert 8 not in built
+    assert built and 8 not in built
     assert all(s in (16, 32, 64, 96, 128, 192, 256, 384, 512) for s in built)
 
 

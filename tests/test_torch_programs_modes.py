@@ -41,7 +41,7 @@ from test_torch_programs import CpuProgram
 from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 CHUNK = 16
-STAGES = ("analyze", "measure", "cost", "exact_scan", "final")
+STAGES = ("analyze", "measure", "cost", "exact_scan", "final", "baseline")
 
 # the configurations that took programs in this slice: Engine keywords
 CONFIGS = {

@@ -182,7 +182,11 @@ def _record(monkeypatch, module, name, log, field):
 def test_each_block_sits_in_a_batch_of_the_engines_size(monkeypatch):
     """A 40-block file in 5-block pushes: every block is analysed, and
     synthesized, at its own row of a batch of the size that holds it in
-    the Engine (not in a 5-block batch); the bytes and samples agree."""
+    the Engine (not in a 5-block batch); the bytes and samples agree.  A
+    push's analysis takes the batch's PCM window with the push's samples
+    in it, so the rows at its edges, which hold half a neighbour's frame,
+    are analysed too (and dropped): the stream's rows are the Engine's,
+    some more than once."""
     rng = np.random.default_rng(11)
     pcm = np.clip(rng.normal(0, 3000, (39 * 1024 + 700, 2)), -32768,
                   32767).astype(np.int16)
@@ -200,7 +204,7 @@ def test_each_block_sits_in_a_batch_of_the_engines_size(monkeypatch):
     np.testing.assert_array_equal(got, want)
     b = S.file_blocks(pcm.shape[0], 1024)
     assert logs["eng-a"] == [(64, k) for k in range(b)]
-    assert logs["str-a"] == logs["eng-a"]
+    assert set(logs["str-a"]) == set(logs["eng-a"])
     assert logs["eng-s"] == [(64, k) for k in range(b)]
     assert logs["str-s"] == logs["eng-s"]
 
