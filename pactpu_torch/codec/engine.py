@@ -91,6 +91,7 @@ from pactpu_torch.ops import quantize as q
 from pactpu_torch.ops.mdct import _mdct_basis_np, imdct, mdct
 from pactpu_torch.ops.windows import analysis_window, hann_window
 from pactpu_torch.utils.config import CodecConfig
+from pactpu_torch.utils.metrics import span
 
 DEFAULT_CHUNK_BLOCKS = 512
 
@@ -635,9 +636,20 @@ def _full_fp32() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-def _host_u32(t: torch.Tensor) -> np.ndarray:
-    """Download an int32 tensor of u32 bit patterns as numpy uint32."""
-    return t.cpu().numpy().view(np.uint32)
+def _download(t) -> np.ndarray:
+    """A tensor (or a list of them, joined) on the host, as numpy: the span
+    "download" (bytes; pinned: whether the host copy is page-locked)."""
+    with span("download") as sp:
+        h = (torch.cat(t) if isinstance(t, list) else t).cpu()
+        if sp is not None:
+            sp.counts.update(bytes=h.nbytes, pinned=int(h.is_pinned()))
+        return h.numpy()
+
+
+def _host_u32(t) -> np.ndarray:
+    """Download an int32 tensor (or a list of them, joined) of u32 bit
+    patterns as numpy uint32."""
+    return _download(t).view(np.uint32)
 
 
 class Engine:
@@ -803,8 +815,10 @@ class Engine:
         if programmed and blocks in _TAIL_BUCKETS:
             host = [torch.from_numpy(np.ascontiguousarray(a))
                     if isinstance(a, np.ndarray) else a for a in args]
-            return self.programs.run(stage, (self.precision, *key), fn, host)
-        return fn(*(self._upload(a) for a in args))
+            return self.programs.run(stage, (self.precision, *key), fn, host,
+                                     blocks=blocks)
+        with span("direct:" + stage, blocks=blocks):
+            return fn(*(self._upload(a) for a in args))
 
     def _exact_run(self):
         """The runner of exact.exact_extras_chunked's stages, "cost" (K10)
@@ -835,20 +849,26 @@ class Engine:
         counts (zero frames past the file).  Returns dict(b: the file's
         block count, the flush block included; sizes: the chunks' block
         counts; offs: the batches' block offsets; pcm: i16[C, (n + 1) N]
-        on the device)."""
+        on the device).  The span "upload" covers the framing and the
+        copy."""
         half = self.cfg.n_mdct_lines
         c = self.cfg.n_channels
         if pcm.ndim != 2 or pcm.shape[1] != c:
             raise ValueError(f"pcm must be [n, {c}] int16, got {pcm.shape}")
-        b = -(-pcm.shape[0] // half) + 1             # + flush block
+        b = self._blocks(pcm)
         sizes = _chunk_sizes(b, self._chunk(b))
         offs = _offsets(batches(b))
         b_pad = offs[-1]
-        glob = np.zeros((c, (b_pad + 1) * half), np.int16)
-        n = min(pcm.shape[0], b_pad * half)
-        glob[:, half:half + n] = pcm[:n].T
-        return dict(b=b, sizes=sizes, offs=offs,
-                    pcm=torch.from_numpy(glob).to(self.device))
+        with span("upload") as sp:
+            glob = np.zeros((c, (b_pad + 1) * half), np.int16)
+            n = min(pcm.shape[0], b_pad * half)
+            glob[:, half:half + n] = pcm[:n].T
+            src = torch.from_numpy(glob)
+            if sp is not None:
+                sp.counts.update(bytes=src.nbytes,
+                                 pinned=int(src.is_pinned()))
+            return dict(b=b, sizes=sizes, offs=offs,
+                        pcm=src.to(self.device))
 
     def _frames(self, pcm: np.ndarray, batches):
         """Upload the PCM once and cut it into batches of overlapped frames.
@@ -881,7 +901,8 @@ class Engine:
         SMRs would otherwise depend on the chunk size, and so would the
         exact mode's stream.  Blocks past the default chunking's padding,
         which a larger chunk size adds, are all zero frames: they take a
-        batch of their own."""
+        batch of their own.  The span "analyze" counts the rows analysed
+        and the real ones (the file's blocks)."""
         cfg, dev = self.cfg, self.consts()
         half, offs = cfg.n_mdct_lines, up["offs"]
         programmed = programs.encode_programs(self)["analyze"]
@@ -889,12 +910,13 @@ class Engine:
         def stage(x):
             return analyze(cfg, _overlap_frames(x, half), dev)
 
-        parts = [self._run_stage(
-            "analyze", programmed, offs[k + 1] - offs[k], (cfg,), stage,
-            (up["pcm"][:, offs[k] * half:(offs[k + 1] + 1) * half],))
-            for k in range(len(offs) - 1)]
-        return _recut(parts, [z - a for a, z in zip(offs, offs[1:])],
-                      _offsets(up["sizes"]))
+        with span("analyze", rows=offs[-1], real_rows=up["b"]):
+            parts = [self._run_stage(
+                "analyze", programmed, offs[k + 1] - offs[k], (cfg,), stage,
+                (up["pcm"][:, offs[k] * half:(offs[k + 1] + 1) * half],))
+                for k in range(len(offs) - 1)]
+            return _recut(parts, [z - a for a, z in zip(offs, offs[1:])],
+                          _offsets(up["sizes"]))
 
     def _encode_chunks(self, pcm: np.ndarray) -> dict:
         """Upload the PCM once, run the analysis (_analyze) and the rate
@@ -923,7 +945,15 @@ class Engine:
         reservoir_scan) with the carry on the device, as the exact scan
         chains K7: no host round trip.  Returns (staged, carry'): carry'
         an i32[2] device tensor (read it after the download), in cbr the
-        carry unchanged."""
+        carry unchanged.  The span "rate" covers the passes before the
+        final one."""
+        with span("rate", chunks=len(sizes)):
+            extras_chunks, carry = self._extras(analyses, b, sizes, carry)
+        return self._stage_payload(analyses, extras_chunks, b, sizes), carry
+
+    def _extras(self, analyses: list, b: int, sizes: list, carry):
+        """Each chunk's extra bits and the carry after them
+        (_rate_control)."""
         cfg = self.cfg
         offs = _offsets(sizes)
         dev = self.consts()
@@ -934,10 +964,7 @@ class Engine:
             extras_chunks, carry = exact.exact_extras_chunked(
                 cfg, analyses, dev, b, self._device_carry(carry),
                 self._exact_run())
-            self._last["extras"] = torch.cat(extras_chunks)
-            return self._stage_payload(analyses, extras_chunks, b,
-                                       sizes), carry
-        if self.rate_mode == "cbr":
+        elif self.rate_mode == "cbr":
             extras_chunks = [torch.zeros(s, device=self.device)
                              for s in sizes]
         else:
@@ -969,7 +996,7 @@ class Engine:
                 measure_savings=torch.cat([m[0] for m in meas]),
                 measure_leftover=torch.cat([m[1] for m in meas]))
         self._last["extras"] = torch.cat(extras_chunks)
-        return self._stage_payload(analyses, extras_chunks, b, sizes), carry
+        return extras_chunks, carry
 
     def _stage_payload(self, analyses, extras_chunks, b: int,
                        sizes: list) -> dict:
@@ -977,7 +1004,8 @@ class Engine:
         debug_checks=True) checks it here), and the staged download: each
         chunk's payload rows compacted by their word counts (device
         packing, `dense`), or the fields the host packer takes
-        (device_pack=False)."""
+        (device_pack=False).  The span "final" counts the rows and the
+        real ones."""
         cfg, dev = self.cfg, self.consts()
         c = cfg.n_channels
         pack_words = PACK_WORDS if self.device_pack else 0
@@ -993,25 +1021,35 @@ class Engine:
                     mixed.shape[0] * c * PACK_DENSE_WORDS)
             return out
 
-        outs = [self._run_stage("final", programmed, size, (cfg, pack_words),
-                                stage, (*(a[k] for k in _ANALYSIS_KEYS), ex))
-                for a, ex, size in zip(analyses, extras_chunks, sizes)]
-        if self.debug_checks:
-            _debug_check_encode(analyses, outs, exact.max_mant(cfg), sizes)
+        with span("final") as sp:
+            if sp is not None:
+                sp.counts.update(rows=sum(sizes), real_rows=b)
+            outs = [self._run_stage("final", programmed, size,
+                                    (cfg, pack_words), stage,
+                                    (*(a[k] for k in _ANALYSIS_KEYS), ex))
+                    for a, ex, size in zip(analyses, extras_chunks, sizes)]
+            if self.debug_checks:
+                _debug_check_encode(analyses, outs, exact.max_mant(cfg),
+                                    sizes)
         st = dict(outs=outs, b=b, analyses=analyses, extras=extras_chunks,
                   sizes=sizes)
         if self.device_pack:
             st["dense"] = [o.pop("dense") for o in outs]
         return st
 
-    def _host_pack(self, st: dict) -> bytes:
-        """The payload of a device_pack=False encode: ONE download of every
-        chunk's fields, then the native serializer (pack_payload)."""
+    def _host_pack(self, st: dict, header: bytes = b"") -> bytes:
+        """header and the payload of a device_pack=False encode: the
+        download of every chunk's fields, then the native serializer
+        (pack_payload, the span "frame")."""
         b = st["b"]
-        return self.pack_payload(
-            {k: torch.cat([o[k] for o in st["outs"]])[:b].cpu().numpy()
-             for k in ("overall", "tid", "bits", "sf", "sign", "codes",
-                       "lens", "lrms")}, b)
+        out = {k: _download(torch.cat([o[k] for o in st["outs"]])[:b])
+               for k in ("overall", "tid", "bits", "sf", "sign", "codes",
+                         "lens", "lrms")}
+        with span("frame") as sp:
+            data = self.pack_payload(out, b)
+            if sp is not None:
+                sp.counts.update(bytes_out=len(data), wide=0, padded=0)
+            return header + data
 
     def pack_payload(self, out: dict, b: int) -> bytes:
         """The .wak payload of the first b blocks of encode_arrays' host
@@ -1036,71 +1074,80 @@ class Engine:
             r2(out["codes"]), r2(out["lens"]),
             np.asarray(out["lrms"][:b], np.int32), n_channels=c)
 
-    def _finish_encode(self, st: dict) -> bytes:
+    def _finish_encode(self, st: dict, header: bytes = b"") -> bytes:
         """Blocking half of an encode: ONE download of every chunk's dense
         payload (rows compacted by their word counts, nbits appended), then
         host framing (or, with device_pack=False, _host_pack).  Fallbacks:
         a chunk whose rows overflow PACK_WORDS is re-finalized with a wider
         packer, launch by launch; a chunk whose dense total passes its cap
-        downloads its padded rows instead."""
+        downloads its padded rows instead.  header (a stream's) goes in
+        front of the payload.  Spans: "download" (the dense download), then
+        "frame" (the framing; the payload's bytes, the chunks re-finalized
+        wide and the chunks that took their padded rows)."""
         cfg = self.cfg
         c = cfg.n_channels
         outs, b, sizes = st["outs"], st["b"], st["sizes"]
         self._last["savings"] = torch.cat([o["savings"] for o in outs])
         if not self.device_pack:
-            return self._host_pack(st)
+            return self._host_pack(st, header)
         width = outs[0]["words"].shape[1]
-        dn = _host_u32(torch.cat(st["dense"]))
-        chunks, pos = [], 0
-        for size in sizes:
-            rows = size * c
-            cap = rows * PACK_DENSE_WORDS
-            nbits = dn[pos + cap:pos + cap + rows].astype(np.int32)
-            counts = np.minimum((nbits.astype(np.int64) + 31) // 32, width)
-            flat = dn[pos:pos + cap] if int(counts.sum()) <= cap else None
-            chunks.append((flat, nbits, counts))
-            pos += cap + rows
-        padded = [k for k, (flat, _, _) in enumerate(chunks)
-                  if flat is None and sum(sizes[:k]) < b]
-        if padded:
-            words = _host_u32(torch.cat([outs[k]["words"] for k in padded]))
-            padded = dict(zip(padded, np.split(
-                words, np.cumsum([sizes[k] * c for k in padded])[:-1])))
-        parts = []
-        done = 0
-        for k, (a, ex) in enumerate(zip(st["analyses"], st["extras"])):
-            nb = min(sizes[k], b - done)
-            if nb <= 0:
-                break
-            flat, nbits, counts = chunks[k]
-            nb_rows = nbits[:c * nb]
-            need = -(-int(nb_rows.max(initial=0)) // 32)
-            if need > width:
-                wide = next((w for w in _WIDE_WORDS if w >= need), None)
-                if wide is None:
-                    raise ValueError(f"a payload row needs {need} words, "
-                                     f"past the {PACK_WORDS_MAX}-word packer")
-                wout = finalize(cfg, a, ex, self.consts(), pack_words=wide)
-                parts.append(native.assemble_rows(
-                    _host_u32(wout["words"][:c * nb]),
-                    wout["nbits"][:c * nb].cpu().numpy()))
-            elif flat is not None:
-                offsets = (np.cumsum(counts) - counts).astype(np.int32)
-                parts.append(native.assemble_rows_flat(
-                    flat, offsets[:c * nb], nb_rows))
-            else:
-                parts.append(native.assemble_rows(padded[k][:c * nb],
-                                                  nb_rows))
-            done += nb
-        return b"".join(parts)
+        dn = _host_u32(st["dense"])
+        with span("frame") as sp:
+            chunks, pos = [], 0
+            for size in sizes:
+                rows = size * c
+                cap = rows * PACK_DENSE_WORDS
+                nbits = dn[pos + cap:pos + cap + rows].astype(np.int32)
+                counts = np.minimum((nbits.astype(np.int64) + 31) // 32, width)
+                flat = dn[pos:pos + cap] if int(counts.sum()) <= cap else None
+                chunks.append((flat, nbits, counts))
+                pos += cap + rows
+            padded = [k for k, (flat, _, _) in enumerate(chunks)
+                      if flat is None and sum(sizes[:k]) < b]
+            if padded:
+                words = _host_u32([outs[k]["words"] for k in padded])
+                padded = dict(zip(padded, np.split(
+                    words, np.cumsum([sizes[k] * c for k in padded])[:-1])))
+            parts = []
+            done = wide = 0
+            for k, (a, ex) in enumerate(zip(st["analyses"], st["extras"])):
+                nb = min(sizes[k], b - done)
+                if nb <= 0:
+                    break
+                flat, nbits, counts = chunks[k]
+                nb_rows = nbits[:c * nb]
+                need = -(-int(nb_rows.max(initial=0)) // 32)
+                if need > width:
+                    w = next((w for w in _WIDE_WORDS if w >= need), None)
+                    if w is None:
+                        raise ValueError(
+                            f"a payload row needs {need} words, past the "
+                            f"{PACK_WORDS_MAX}-word packer")
+                    wout = finalize(cfg, a, ex, self.consts(), pack_words=w)
+                    parts.append(native.assemble_rows(
+                        _host_u32(wout["words"][:c * nb]),
+                        _download(wout["nbits"][:c * nb])))
+                    wide += 1
+                elif flat is not None:
+                    offsets = (np.cumsum(counts) - counts).astype(np.int32)
+                    parts.append(native.assemble_rows_flat(
+                        flat, offsets[:c * nb], nb_rows))
+                else:
+                    parts.append(native.assemble_rows(padded[k][:c * nb],
+                                                      nb_rows))
+                done += nb
+            if sp is not None:
+                sp.counts.update(bytes_out=sum(map(len, parts)), wide=wide,
+                                 padded=len(padded))
+            return b"".join([header, *parts])
 
-    def _encode_baseline(self, pcm: np.ndarray) -> bytes:
+    def _encode_baseline(self, pcm: np.ndarray, header: bytes = b"") -> bytes:
         """The .pac payload: the PCM uploaded once, encode_baseline batch
         by batch (the default chunking's, whatever chunk_blocks is: no
         rate control spans them, and the bytes do not depend on it, as in
-        _analyze), then _baseline_finish."""
+        _analyze), then _baseline_finish, header in front."""
         return self._baseline_finish(self._baseline_dispatch(
-            self._upload_pcm(pcm, _default_batches)))
+            self._upload_pcm(pcm, _default_batches)), header)
 
     def _baseline_dispatch(self, up: dict) -> dict:
         """The device half of a .pac encode from its uploaded PCM (an
@@ -1128,29 +1175,46 @@ class Engine:
         b = up["b"]
         return dict(b=b, host=torch.cat(outs)[:b].reshape(b * c, -1))
 
-    def _baseline_finish(self, st: dict) -> bytes:
+    def _baseline_finish(self, st: dict, header: bytes = b"") -> bytes:
         """Blocking half of a .pac encode: ONE download of every batch's
         side info and mantissas, host serialization (native pack_file,
-        the baseline layout)."""
+        the baseline layout; the span "frame")."""
         cfg = self.cfg
         c, half, nb = cfg.n_channels, cfg.n_mdct_lines, cfg.n_bands
         b = st["b"]
-        host = st["host"].cpu().numpy()
+        host = _download(st["host"])
         ba = host[:, 1:1 + nb]
-        return native.pack_file(
-            np.asarray(cfg.band_layout.n_lines, np.int32), cfg.n_scale_bits,
-            cfg.n_mant_size_bits, 0, host[:, 0], np.zeros(b * c, np.int32),
-            ba, host[:, 1 + nb:1 + 2 * nb],
-            np.zeros((b * c, half), np.int32), host[:, 1 + 2 * nb:],
-            ba[:, cfg.band_layout.line_to_band],
-            np.zeros((b, nb), np.int32), write_lrms=False, n_channels=c)
+        with span("frame") as sp:
+            data = native.pack_file(
+                np.asarray(cfg.band_layout.n_lines, np.int32),
+                cfg.n_scale_bits, cfg.n_mant_size_bits, 0, host[:, 0],
+                np.zeros(b * c, np.int32), ba, host[:, 1 + nb:1 + 2 * nb],
+                np.zeros((b * c, half), np.int32), host[:, 1 + 2 * nb:],
+                ba[:, cfg.band_layout.line_to_band],
+                np.zeros((b, nb), np.int32), write_lrms=False, n_channels=c)
+            if sp is not None:
+                sp.counts.update(bytes_out=len(data), wide=0, padded=0)
+            return header + data
 
     def encode(self, pcm: np.ndarray) -> bytes:
-        """pcm: int16 [n, C] -> complete .wak (or .pac) byte stream."""
-        header, _ = write_header(self.cfg, pcm.shape[0])
-        if self.fmt == "pac":
-            return header + self._encode_baseline(pcm)
-        return header + self._finish_encode(self._encode_chunks(pcm))
+        """pcm: int16 [n, C] -> complete .wak (or .pac) byte stream (the
+        root span "encode", its blocks counted; its device tensors are
+        freed in the span "release")."""
+        with span("encode") as sp:
+            if sp is not None:
+                sp.counts["blocks"] = self._blocks(pcm)
+            header, _ = write_header(self.cfg, pcm.shape[0])
+            if self.fmt == "pac":
+                return self._encode_baseline(pcm, header)
+            st = self._encode_chunks(pcm)
+            data = self._finish_encode(st, header)
+            with span("release"):
+                del st
+            return data
+
+    def _blocks(self, pcm: np.ndarray) -> int:
+        """The blocks of an encode of pcm, the flush block included."""
+        return -(-pcm.shape[0] // self.cfg.n_mdct_lines) + 1
 
     def encode_arrays(self, pcm: np.ndarray):
         """pcm: int16 [n, C] -> (host arrays, b), pactpu's encode_arrays:
@@ -1158,11 +1222,13 @@ class Engine:
         included (savings, leftover, overall, lrms, bits, sf, tid, and
         words as uint32 with nbits, or with device_pack=False sign, codes
         and lens).  The header and pack_payload(out, b) are encode(pcm)."""
-        st = self._encode_chunks(pcm)
-        outs = st["outs"]
-        self._last["savings"] = torch.cat([o["savings"] for o in outs])
-        out = {k: torch.cat([o[k] for o in outs]).cpu().numpy()
-               for k in outs[0]}
+        with span("encode") as sp:
+            st = self._encode_chunks(pcm)
+            if sp is not None:
+                sp.counts["blocks"] = st["b"]
+            outs = st["outs"]
+            self._last["savings"] = torch.cat([o["savings"] for o in outs])
+            out = {k: _download([o[k] for o in outs]) for k in outs[0]}
         if "words" in out:
             out["words"] = out["words"].view(np.uint32)
         return out, st["b"]
@@ -1174,9 +1240,26 @@ class Engine:
         last_measure and last_extras describe the last file."""
         if self.fmt == "pac":
             return [self.encode(p) for p in pcms]
-        staged = [(write_header(self.cfg, p.shape[0])[0],
-                   self._encode_chunks(p)) for p in pcms]
-        return [h + self._finish_encode(st) for h, st in staged]
+        staged = self._encode_staged(pcms)
+        out = []
+        for header, st in staged:
+            with span("encode", blocks=0):
+                out.append(self._finish_encode(st, header))
+        return out
+
+    def _encode_staged(self, pcms) -> list:
+        """The first half of encode_many and roundtrip_many: each file's
+        (header, staged encode), each under a root span "encode" of its
+        blocks (its download and framing run later, under a second root
+        span "encode" of 0 blocks)."""
+        staged = []
+        for p in pcms:
+            with span("encode") as sp:
+                st = self._encode_chunks(p)
+                if sp is not None:
+                    sp.counts["blocks"] = st["b"]
+            staged.append((write_header(self.cfg, p.shape[0])[0], st))
+        return staged
 
     def roundtrip_many(self, pcms, return_streams: bool = False):
         """Pipelined many-file encode -> decode: every encode is staged
@@ -1189,14 +1272,18 @@ class Engine:
             streams = [self.encode(p) for p in pcms]
             results = [self.decode(s) for s in streams]
             return (results, streams) if return_streams else results
-        staged = [(write_header(self.cfg, p.shape[0])[0],
-                   self._encode_chunks(p)) for p in pcms]
         streams, dec = [], []
-        for header, st in staged:
-            stream = header + self._finish_encode(st)
-            streams.append(stream)
-            dec.append(self._decode_dispatch(stream))
-        results = [self._decode_finish(*d) for d in dec]
+        for header, st in self._encode_staged(pcms):
+            with span("encode", blocks=0):
+                streams.append(self._finish_encode(st, header))
+            with span("decode") as sp:
+                dec.append(self._decode_dispatch(streams[-1]))
+                if sp is not None:
+                    sp.counts["blocks"] = dec[-1][2]
+        results = []
+        for d in dec:
+            with span("decode", blocks=0):
+                results.append(self._decode_finish(*d))
         return (results, streams) if return_streams else results
 
     # -- decode ----------------------------------------------------------
@@ -1205,14 +1292,28 @@ class Engine:
         """Full stream -> (sample_rate, int16 [n, C]): the reference
         decoder's first-block skip and final overlap-add flush (reference
         codec/pacfile.py:484-487, 171-178), trimmed to the header's
-        numSamples (incl. the Q6 padding quirk)."""
-        return self._decode_finish(*self._decode_dispatch(data))
+        numSamples (incl. the Q6 padding quirk).  The root span "decode"
+        counts the stream's blocks."""
+        with span("decode") as sp:
+            d = self._decode_dispatch(data)
+            if sp is not None:
+                sp.counts["blocks"] = d[2]
+            return self._decode_finish(*d)
 
     def decode_many(self, datas) -> list:
         """Batch decode: every stream is parsed (or framed), uploaded and
         queued before the first PCM download blocks."""
-        staged = [self._decode_dispatch(d) for d in datas]
-        return [self._decode_finish(*st) for st in staged]
+        staged = []
+        for data in datas:
+            with span("decode") as sp:
+                staged.append(self._decode_dispatch(data))
+                if sp is not None:
+                    sp.counts["blocks"] = staged[-1][2]
+        out = []
+        for st in staged:
+            with span("decode", blocks=0):
+                out.append(self._decode_finish(*st))
+        return out
 
     def decode_range(self, data: bytes, start_sample: int,
                      num_samples: int) -> tuple[int, np.ndarray]:
@@ -1257,16 +1358,20 @@ class Engine:
 
         mini = (write_header(cfg, total_samples)[0]
                 + payload[spans[f0][0]:spans[f1][1]])
-        _, _, mb, ola_dev, n_bad = self._decode_dispatch(mini)
-        ola = self._fetch_ola(ola_dev, mb, c, n_bad, first_cblock=f0 * c)
-        # row t is the overlap-add of frames f0+t-1 and f0+t = audio block
-        # f0+t-1; row 0 lacks its true carry and is dropped (as the whole-
-        # file decoder's first-block skip); the tail row is the final
-        # flush, valid only at the end of the stream
-        rows = ola[1:mb + (1 if at_eof else 0)]
-        audio = rows.transpose(1, 0, 2).reshape(c, -1).T
-        base = f0 * half
-        return cfg.sample_rate, audio[s0 - base:s1 - base].copy()
+        with span("decode") as sp:
+            _, _, mb, ola_dev, n_bad = self._decode_dispatch(mini)
+            if sp is not None:
+                sp.counts["blocks"] = mb
+            ola = self._fetch_ola(ola_dev, mb, c, n_bad, first_cblock=f0 * c)
+            # row t is the overlap-add of frames f0+t-1 and f0+t = audio
+            # block f0+t-1; row 0 lacks its true carry and is dropped (as
+            # the whole-file decoder's first-block skip); the tail row is
+            # the final flush, valid only at the end of the stream
+            with span("assemble", samples=s1 - s0):
+                rows = ola[1:mb + (1 if at_eof else 0)]
+                audio = rows.transpose(1, 0, 2).reshape(c, -1).T
+                base = f0 * half
+                return cfg.sample_rate, audio[s0 - base:s1 - base].copy()
 
     def _decode_staging(self, data: bytes) -> dict:
         """Host half of a decode: read the header and stage the payload by
@@ -1304,8 +1409,9 @@ class Engine:
             lut = hw.device_walk_lut(self.tables, device=self.device)
             if lut is None:
                 return None
-        words, nbits = hd.frame_rows(data[off:],
-                                     word_cap=_PAYLOAD_WORD_BUCKETS[-1])
+        with span("parse", bytes_in=len(data) - off):
+            words, nbits = hd.frame_rows(data[off:],
+                                         word_cap=_PAYLOAD_WORD_BUCKETS[-1])
         if words is None:
             return None
         c = cfg.n_channels
@@ -1344,7 +1450,8 @@ class Engine:
         """Stage a host-parse decode: native parse, repack of the mantissa
         codes into fixed-width words, and compaction of each chunk's rows
         into one flat buffer (padded rows where a chunk's total exceeds
-        PACK_DENSE_WORDS per row)."""
+        PACK_DENSE_WORDS per row: the span "compact" counts that
+        overflow)."""
         c = cfg.n_channels
         parsed, rows_pad, rowbits, n_words = self._host_parse(data[off:], cfg)
         b = parsed["n_cblocks"] // c
@@ -1356,28 +1463,31 @@ class Engine:
             a = a.reshape(b, c, *a.shape[1:])
             return np.pad(a, [(0, b_pad - b)] + [(0, 0)] * (a.ndim - 1))
 
-        ba = d2(parsed["ba"]).astype(np.int8)
-        sf = d2(parsed["sf"]).astype(np.int8)
-        overall = d2(parsed["overall"]).astype(np.int8)
-        lrms = np.pad(parsed["lrms"] != 0, ((0, b_pad - b), (0, 0)))
+        with span("compact") as sp:
+            ba = d2(parsed["ba"]).astype(np.int8)
+            sf = d2(parsed["sf"]).astype(np.int8)
+            overall = d2(parsed["overall"]).astype(np.int8)
+            lrms = np.pad(parsed["lrms"] != 0, ((0, b_pad - b), (0, 0)))
 
-        counts = np.minimum((rowbits + 31) // 32, n_words)
-        col = np.arange(n_words)[None, :]
-        words = []
-        for k, sz in enumerate(sizes):
-            i, rpc = offs[k] * c, sz * c
-            cap_k = rpc * PACK_DENSE_WORDS
-            cc = counts[i:i + rpc]
-            if int(cc.sum()) > cap_k:
-                words = None                 # dense overflow: padded rows
-                break
-            fl = rows_pad[i:i + rpc][col < cc[:, None]]
-            words.append(np.pad(fl, (0, cap_k - fl.shape[0])))
-        flat = words is not None
-        if not flat:
-            rows_all = d2(rows_pad).reshape(b_pad * c, n_words)
-            words = [rows_all[offs[k] * c:offs[k + 1] * c]
-                     for k in range(len(sizes))]
+            counts = np.minimum((rowbits + 31) // 32, n_words)
+            col = np.arange(n_words)[None, :]
+            words = []
+            for k, sz in enumerate(sizes):
+                i, rpc = offs[k] * c, sz * c
+                cap_k = rpc * PACK_DENSE_WORDS
+                cc = counts[i:i + rpc]
+                if int(cc.sum()) > cap_k:
+                    words = None             # dense overflow: padded rows
+                    break
+                fl = rows_pad[i:i + rpc][col < cc[:, None]]
+                words.append(np.pad(fl, (0, cap_k - fl.shape[0])))
+            flat = words is not None
+            if not flat:
+                rows_all = d2(rows_pad).reshape(b_pad * c, n_words)
+                words = [rows_all[offs[k] * c:offs[k + 1] * c]
+                         for k in range(len(sizes))]
+            if sp is not None:
+                sp.counts["overflow"] = int(not flat)
         dev = self.consts(cfg=cfg)
         programmed = programs.decode_programs(self)
 
@@ -1444,9 +1554,19 @@ class Engine:
 
     def _decode_upload(self, staged: dict) -> dict:
         """A _decode_staging result with its chunks' host arrays on the
-        device: the only host-to-device copies of a decode."""
-        return {**staged, "chunk_args": [tuple(self._upload(a) for a in args)
-                                         for args in staged["chunk_args"]]}
+        device: the only host-to-device copies of a decode (the span
+        "upload": their bytes, and whether every one was page-locked)."""
+        with span("upload") as sp:
+            if sp is not None:
+                host = [a for args in staged["chunk_args"] for a in args
+                        if not torch.is_tensor(a) or a.device.type == "cpu"]
+                sp.counts.update(
+                    bytes=sum(a.nbytes for a in host),
+                    pinned=int(all(torch.is_tensor(a) and a.is_pinned()
+                                   for a in host)))
+            return {**staged, "chunk_args": [
+                tuple(self._upload(a) for a in args)
+                for args in staged["chunk_args"]]}
 
     def _decode_queue(self, staged: dict):
         """Queue every chunk's decode of a _decode_staging result (on the
@@ -1458,25 +1578,27 @@ class Engine:
         rows, so that one download brings both."""
         cfg, b = staged["cfg"], staged["b"]
         c, half = cfg.n_channels, cfg.n_mdct_lines
-        dt = self.consts(cfg=cfg)["basis"].dtype
-        carry = torch.zeros((c, half), dtype=dt, device=self.device)
-        pcm_chunks, bad_chunks = [], []
-        for args in staged["chunk_args"]:
-            pcm, carry, bad = staged["run"](*args, carry)
-            pcm_chunks.append(pcm)
-            if bad is not None:
-                bad_chunks.append(bad)
-        # the final-flush half (reference pacfile.py:171-178) is the carry
-        # when every block was real, else the overlap-add of the first
-        # padded block; appending the carry row unifies both
-        tail = q.float_to_pcm16(carry)[None]
-        ola = torch.cat(pcm_chunks + [tail])[:b + 1]
-        n_bad = 0
-        if bad_chunks:
-            n_bad = b * c
-            flags = torch.cat(bad_chunks)[:n_bad].to(torch.int16)
-            flags = torch.nn.functional.pad(flags, (0, -n_bad % (c * half)))
-            ola = torch.cat([ola, flags.reshape(-1, c, half)])
+        with span("queue", chunks=len(staged["chunk_args"])):
+            dt = self.consts(cfg=cfg)["basis"].dtype
+            carry = torch.zeros((c, half), dtype=dt, device=self.device)
+            pcm_chunks, bad_chunks = [], []
+            for args in staged["chunk_args"]:
+                pcm, carry, bad = staged["run"](*args, carry)
+                pcm_chunks.append(pcm)
+                if bad is not None:
+                    bad_chunks.append(bad)
+            # the final-flush half (reference pacfile.py:171-178) is the
+            # carry when every block was real, else the overlap-add of the
+            # first padded block; appending the carry row unifies both
+            tail = q.float_to_pcm16(carry)[None]
+            ola = torch.cat(pcm_chunks + [tail])[:b + 1]
+            n_bad = 0
+            if bad_chunks:
+                n_bad = b * c
+                flags = torch.cat(bad_chunks)[:n_bad].to(torch.int16)
+                flags = torch.nn.functional.pad(flags,
+                                                (0, -n_bad % (c * half)))
+                ola = torch.cat([ola, flags.reshape(-1, c, half)])
         return cfg, staged["num_samples"], b, ola, n_bad
 
     @staticmethod
@@ -1485,7 +1607,7 @@ class Engine:
         """The single download of a decode: the overlap-added PCM rows
         i16[b + 1, C, N], after raising on a channel-block the device
         parser flagged (numbered from first_cblock)."""
-        ola = ola_dev.cpu().numpy()
+        ola = _download(ola_dev)
         bad = ola[b + 1:].reshape(-1)[:n_bad]
         if bad.any():
             raise ValueError("corrupt payload at channel-block "
@@ -1493,12 +1615,16 @@ class Engine:
         return ola[:b + 1]
 
     def _decode_finish(self, cfg, num_samples, b, ola_dev, n_bad):
-        """Blocking half of decode: the single download + reshaping.
-        Row 0 (the MDCT delay) is dropped, the flush row kept."""
+        """Blocking half of decode: the single download + reshaping (the
+        span "assemble", its samples a channel counted).  Row 0 (the MDCT
+        delay) is dropped, the flush row kept."""
         c = cfg.n_channels
         audio = self._fetch_ola(ola_dev, b, c, n_bad)[1:]
-        pcm = audio.transpose(1, 0, 2).reshape(c, -1).T[:num_samples]
-        return cfg.sample_rate, pcm.copy()
+        with span("assemble") as sp:
+            pcm = audio.transpose(1, 0, 2).reshape(c, -1).T[:num_samples]
+            if sp is not None:
+                sp.counts["samples"] = pcm.shape[0]
+            return cfg.sample_rate, pcm.copy()
 
 
 ALLOC_MODES = ("water_fill", "closed_form", "uniform", "const_snr",

@@ -38,6 +38,11 @@ the card a stage function here is captured once a key into a
   k's exact_scan program (K7) replays on the caller's: the stages of
   SIDE_STAGES take a pool of their own ("side"), so that two graphs
   running at once never share intermediates or static outputs.
+- Spans (pactpu_torch.utils.metrics.span): a replay is the span
+  "replay:<stage>" (the inputs copied in, the graph launched, the
+  outputs cloned out), a first call "capture:<stage>" (the warm-up and
+  the capture), and a stage the Engine runs directly "direct:<stage>";
+  each counts the chunk's blocks.
 - Launches: `kernels.LAUNCHES` counts wrapper calls, and a replay calls
   none.  The capturing thread's launches are counted apart
   (kernels.captured_launches: a capture launches nothing, and other
@@ -70,6 +75,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from pactpu_torch.ops import kernels
+from pactpu_torch.utils.metrics import span
 
 # programs a stage keeps per Engine, least recently used dropped first
 MAX_PROGRAMS = 16
@@ -199,6 +205,7 @@ class Program:
     def __init__(self, stage: str, graph, static_in: list, out,
                  launches: dict, device=None):
         self.stage = stage
+        self.span_name = "replay:" + stage     # its replays' span
         self.graph = graph
         self.static_in = static_in
         self.static_out, self.spec = tree_flatten(out)
@@ -278,16 +285,22 @@ class Programs:
     def pool_of(stage: str) -> str:
         return "side" if stage in SIDE_STAGES else "main"
 
-    def run(self, stage: str, key: tuple, fn, args):
+    def run(self, stage: str, key: tuple, fn, args, blocks: int = 0):
         """fn(*args) through the stage's program for key (built at the
-        first call).  fn must depend on nothing but its tensor arguments
-        and what key names."""
+        first call), a span "replay:<stage>" or "capture:<stage>" of
+        `blocks` blocks.  fn must depend on nothing but its tensor
+        arguments and what key names."""
         cache = self._stages.setdefault(stage, collections.OrderedDict())
         full = self.key(key, args)
         prog = cache.get(full)
         if prog is not None:
             cache.move_to_end(full)
-            return prog(*args)
+            with span(prog.span_name, blocks=blocks):
+                return prog(*args)
+        with span("capture:" + stage, blocks=blocks):
+            return self._capture(stage, cache, full, fn, args)
+
+    def _capture(self, stage: str, cache, full: tuple, fn, args):
         pool = self.pool_of(stage)
         if pool not in self._pools and self.device.type == "cuda":
             self._pools[pool] = torch.cuda.graph_pool_handle()

@@ -61,6 +61,7 @@ from pactpu_torch.codec.engine import (
 from pactpu_torch.codec.header import read_header, write_header
 from pactpu_torch.ops import quantize as q
 from pactpu_torch.utils.config import CodecConfig
+from pactpu_torch.utils.metrics import span
 
 
 def _state_to_bytes(d: dict) -> bytes:
@@ -127,24 +128,29 @@ def analyze_blocks(cfg: CodecConfig, seq: torch.Tensor, k0: int,
     blocks' samples) are dropped: each row's analysis is its own.  eng:
     the stream's Engine, or a shard device's owner (parallel.shard.owner),
     whose tables the analysis reads.  Returns one analysis dict a piece,
-    its blocks' rows, in block order."""
-    half = cfg.n_mdct_lines
-    m = seq.shape[1] // half - 1
-    dev = eng.consts()
-    programmed = programs.encode_programs(eng)["analyze"]
+    its blocks' rows, in block order.  The span "analyze" counts the rows
+    analysed (the batches' sizes) and the real ones (m)."""
+    with span("analyze") as sp:
+        half = cfg.n_mdct_lines
+        m = seq.shape[1] // half - 1
+        dev = eng.consts()
+        programmed = programs.encode_programs(eng)["analyze"]
 
-    def stage(x):
-        return analyze(cfg, _overlap_frames(x, half), dev)
+        def stage(x):
+            return analyze(cfg, _overlap_frames(x, half), dev)
 
-    analyses = []
-    for k, hi, start, size in batch_pieces(k0, k0 + m, total):
-        lo, n = k - start, hi - k
-        window = F.pad(seq[:, (k - k0) * half:(hi - k0 + 1) * half],
-                       (lo * half, (size - lo - n) * half))
-        a = eng._run_stage("analyze", programmed, size, (cfg,), stage,
-                           (window,))
-        analyses.append({key: v[lo:lo + n] for key, v in a.items()})
-    return analyses
+        pieces = batch_pieces(k0, k0 + m, total)
+        if sp is not None:
+            sp.counts.update(rows=sum(p[3] for p in pieces), real_rows=m)
+        analyses = []
+        for k, hi, start, size in pieces:
+            lo, n = k - start, hi - k
+            window = F.pad(seq[:, (k - k0) * half:(hi - k0 + 1) * half],
+                           (lo * half, (size - lo - n) * half))
+            a = eng._run_stage("analyze", programmed, size, (cfg,), stage,
+                               (window,))
+            analyses.append({key: v[lo:lo + n] for key, v in a.items()})
+        return analyses
 
 
 def padded_rows(a: dict, size: int) -> dict:
@@ -217,46 +223,68 @@ class StreamingEncoder:
 
     def push(self, pcm: np.ndarray) -> bytes:
         """Feed int16 PCM [n, C]; returns the payload bytes of every block
-        that became complete (possibly b'')."""
-        if self._flushed:
-            raise RuntimeError("push after flush")
-        c = self.cfg.n_channels
-        pcm = np.asarray(pcm, np.int16)
-        if pcm.ndim != 2 or pcm.shape[1] != c:
-            raise ValueError(f"pcm must be [n, {c}] int16, got {pcm.shape}")
-        self._n_samples += pcm.shape[0]
-        buf = np.concatenate([self._rem, pcm]) if self._rem.size else pcm
-        half = self.cfg.n_mdct_lines
-        b = buf.shape[0] // half
-        self._rem = buf[b * half:]
-        if b == 0:
-            return b""
-        return self._encode_blocks(buf[:b * half].T.reshape(c, b, half))
+        that became complete (possibly b'').  The root span "push" counts
+        them."""
+        with span("push") as sp:
+            if self._flushed:
+                raise RuntimeError("push after flush")
+            c = self.cfg.n_channels
+            pcm = np.asarray(pcm, np.int16)
+            if pcm.ndim != 2 or pcm.shape[1] != c:
+                raise ValueError(f"pcm must be [n, {c}] int16, got "
+                                 f"{pcm.shape}")
+            self._n_samples += pcm.shape[0]
+            half = self.cfg.n_mdct_lines
+            r = self._rem.shape[0]
+            b = (r + pcm.shape[0]) // half
+            if sp is not None:
+                sp.counts["blocks"] = b
+            if b == 0:
+                self._rem = np.concatenate([self._rem, pcm])
+                return b""
+            take = b * half - r
+            pieces = (self._rem, pcm[:take])
+            self._rem = pcm[take:].copy()
+            return self._encode_blocks(pieces)
 
     def flush(self) -> bytes:
         """Emit the final partial block (zero-padded) and the trailing flush
-        block (reference codec/pacfile.py:355-366)."""
+        block (reference codec/pacfile.py:355-366), a root span "push"."""
         if self._flushed:
             raise RuntimeError("flush called twice")
         self._flushed = True
         half = self.cfg.n_mdct_lines
         c = self.cfg.n_channels
-        blocks = np.zeros((c, 2 if self._rem.shape[0] else 1, half), np.int16)
-        blocks[:, 0, :self._rem.shape[0]] = self._rem.T
+        r = self._rem.shape[0]
+        x = np.zeros(((2 if r else 1) * half, c), np.int16)
+        x[:r] = self._rem
         self._rem = np.zeros((0, c), np.int16)
-        return self._encode_blocks(blocks)
+        with span("push", blocks=x.shape[0] // half):
+            return self._encode_blocks((x,))
 
-    def _encode_blocks(self, blocks: np.ndarray) -> bytes:
-        """Encode complete int16 blocks [C, m, half] following the tail;
-        advances all sequential state."""
-        return self._finish(self._dispatch(self._upload(blocks)), blocks)
+    def _encode_blocks(self, pieces) -> bytes:
+        """Encode the complete blocks that the int16 sample pieces [n_k, C],
+        joined, make, following the tail; advances all sequential state.
+        The push's device tensors are freed in the span "release"."""
+        host, seq = self._upload(pieces)
+        staged = self._dispatch(seq)
+        data = self._finish(staged, host)
+        with span("release"):
+            del staged, seq
+        return data
 
-    def _upload(self, blocks: np.ndarray) -> torch.Tensor:
-        """The PCM of a push's blocks [C, m, half] after the tail, i16[C,
-        (m + 1) half] on the device: the push's one host-to-device copy."""
-        c, m, half = blocks.shape
-        seq = np.concatenate([self._tail, blocks.reshape(c, m * half)], 1)
-        return torch.from_numpy(seq).to(self._eng.device)
+    def _upload(self, pieces):
+        """The PCM of a push: the tail, then the sample pieces [n_k, C]
+        joined (m whole blocks), i16[C, (m + 1) half] on the host and on
+        the device: the push's one host-to-device copy (the span "upload",
+        the join included)."""
+        with span("upload") as sp:
+            host = np.concatenate([self._tail, *(p.T for p in pieces)], 1)
+            src = torch.from_numpy(host)
+            if sp is not None:
+                sp.counts.update(bytes=src.nbytes,
+                                 pinned=int(src.is_pinned()))
+            return host, src.to(self._eng.device)
 
     def _dispatch(self, seq: torch.Tensor):
         """The device half of a push from its uploaded PCM (_upload): the
@@ -281,18 +309,21 @@ class StreamingEncoder:
             (self._deposit, self._extra) if self._carry is None
             else self._carry)
 
-    def _finish(self, staged, blocks: np.ndarray) -> bytes:
+    def _finish(self, staged, host: np.ndarray) -> bytes:
         """Blocking half of a push: the payload download and framing
         (Engine._finish_encode), then the carry read and the state
-        advanced past the push's blocks."""
+        advanced past the push's blocks (host: _upload's PCM).  The carry's
+        read is the span "carry"."""
         st, carry = staged
         data = self._eng._finish_encode(st)
         if torch.is_tensor(carry):
             self._carry = carry
-            carry = carry.tolist()
+            with span("carry"):
+                carry = carry.tolist()
         self._deposit, self._extra = (int(v) for v in carry)
-        self._tail = np.ascontiguousarray(blocks[:, -1])
-        self._n_blocks += blocks.shape[1]
+        half = self.cfg.n_mdct_lines
+        self._tail = np.ascontiguousarray(host[:, -half:])
+        self._n_blocks += host.shape[1] // half - 1
         return data
 
     # -- checkpoint/resume -------------------------------------------------

@@ -23,6 +23,8 @@ import threading
 
 import numpy as np
 
+from pactpu_torch.utils.metrics import span
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(os.path.dirname(_PKG), "csrc", "wakbits.cc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -208,7 +210,13 @@ def assemble_rows_flat(words_flat: np.ndarray, word_offsets: np.ndarray,
 def repack_codes(mant: np.ndarray, ba: np.ndarray, n_lines: np.ndarray,
                  n_words: int) -> np.ndarray:
     """Repack decoded mantissa codes [R, total_lines] into fixed-width
-    MSB-first u32 words [R, n_words] (ba[b] bits per line of band b)."""
+    MSB-first u32 words [R, n_words] (ba[b] bits per line of band b); the
+    span "repack" counts the rows."""
+    with span("repack", rows=len(mant)):
+        return _repack_codes(mant, ba, n_lines, n_words)
+
+
+def _repack_codes(mant, ba, n_lines, n_words):
     lib = _load()
     m_ = _i32(mant)
     ba_ = _i32(ba)
@@ -235,7 +243,16 @@ def unpack_file(payload: bytes, n_lines: np.ndarray, n_scale_bits: int,
 
     Returns dict of arrays keyed overall/table_id/ba/sf/mant [R, ...] and
     lrms [R//n_channels, bands], plus the parsed channel-block count R.
+    The span "parse" counts the payload's bytes.
     """
+    with span("parse", bytes_in=len(payload)):
+        return _unpack_file(payload, n_lines, n_scale_bits,
+                            n_mant_size_bits, n_table_id_bits, read_lrms,
+                            n_channels, tables)
+
+
+def _unpack_file(payload, n_lines, n_scale_bits, n_mant_size_bits,
+                 n_table_id_bits, read_lrms, n_channels, tables):
     lib = _load()
     if n_table_id_bits > 0:
         init_tables(tables)

@@ -1,15 +1,18 @@
-"""Observability: structured per-block encode statistics, stage timing,
-a device trace and the per-block debug dump (pactpu.utils.metrics) on
-PyTorch.
+"""Observability: structured per-block encode statistics, the program's
+spans, stage timing, a device trace and the per-block debug dump
+(pactpu.utils.metrics) on PyTorch.
 
 The reference's observability is print statements: bits saved
 (reference codec/pacfile.py:439), a `'*'` starvation warning
 (codec/bitalloc.py:178) and matplotlib masking plots of block 1
 (codec/psychoac.py:524-528).  Here the engine's outputs are reduced into
 one `EncodeStats` object (per-block bit usage, Huffman savings, the
-reservoir trajectory, stereo-coding decisions, table choice);
-`StageTimer` times host stages by the wall clock; `device_trace` wraps
-`torch.profiler` and writes a Chrome trace; `debug_block` dumps one
+reservoir trajectory, stereo-coding decisions, table choice); `span`
+records the program's own stages (each Engine stage, program replay and
+stream push) while recording is on; `StageTimer` times host stages by the
+wall clock, each stage a span; `device_trace` wraps `torch.profiler` and
+writes a Chrome trace, the program's spans in it, and `idle_gaps`,
+`innermost` and their kin read such a trace; `debug_block` dumps one
 block's psychoacoustic and rate-control state.
 """
 
@@ -17,12 +20,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
+import threading
 import time
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -136,9 +142,256 @@ def collect_encode_stats(out: Dict[str, np.ndarray], n_blocks: int,
     )
 
 
+# -- the program's spans ----------------------------------------------------
+#
+# One recorder for the whole port.  `span(name, **counts)` marks a stage
+# of the program: an Engine stage (upload, analyze, rate, final,
+# download, frame; parse, repack, compact, queue, assemble), a program's
+# replay, capture or direct run ("replay:<stage>", ...), or a stream push
+# and its carry read.  Recording is on inside `tracing()` and whenever a
+# torch.profiler is recording; off, a span is one flag check and a shared
+# null context.  On, a span records its name, start and end
+# (time.perf_counter_ns), its parent (a per-thread stack: DeviceFleet
+# runs an Engine a thread), its request (a root span takes a new one, its
+# children inherit it), its thread and its counts, and under a profiler it
+# is also a profiler range named PREFIX + name on the profiler's clock,
+# beside the kernels and copies the host launched inside it.
+
+# the profiler ranges' prefix
+PREFIX = "pactpu_torch:"
+# spans kept in memory; later ones are counted as dropped
+MAX_SPANS = 1 << 17
+
+_profiler = torch.autograd.profiler
+# a profiler range of function scope: a user-scope range
+# (torch.profiler.record_function) also puts a range over its kernels on
+# the device's timeline, which a reader of device time would count as
+# busy
+_Range = torch._C._profiler._RecordFunctionFast
+_depth = 0                       # tracing() contexts open
+_lock = threading.Lock()
+_done: List["Span"] = []
+_dropped = 0
+_ids = itertools.count(1)
+_requests = itertools.count(1)
+_local = threading.local()
+_NULL = contextlib.nullcontext()
+
+
+class Span:
+    """One recorded span: name, start_ns and end_ns (perf_counter_ns), id,
+    parent (the id of the enclosing span of its thread, None for a root),
+    request (its root's request id), thread and counts (a dict, which the
+    code inside the span may fill)."""
+
+    __slots__ = ("name", "counts", "id", "parent", "request", "thread",
+                 "start_ns", "end_ns", "_range")
+
+    def __init__(self, name: str, counts: dict):
+        self.name = name
+        self.counts = counts
+        self.end_ns = None
+        self._range = None
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+    def __enter__(self) -> "Span":
+        # the profiler's range opens first and closes last, so that the
+        # recorder's own work lies inside it, not between two ranges
+        if _profiler._is_profiler_enabled:
+            self._range = _Range(PREFIX + self.name)
+            self._range.__enter__()
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        top = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = None if top is None else top.id
+        self.request = next(_requests) if top is None else top.request
+        self.thread = threading.get_ident()
+        stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        global _dropped
+        self.end_ns = time.perf_counter_ns()
+        stack = _local.stack
+        if stack and stack[-1] is self:
+            stack.pop()
+        with _lock:
+            if len(_done) < MAX_SPANS:
+                _done.append(self)
+            else:
+                _dropped += 1
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        return False
+
+
+def span(name: str, **counts):
+    """A context manager that records the stage `name` with `counts` while
+    recording is on (it yields the Span, whose counts the stage may add
+    to), and does nothing otherwise (it yields None: compute a count that
+    costs anything only when it is not None)."""
+    if not (_depth or _profiler._is_profiler_enabled):
+        return _NULL
+    return Span(name, counts)
+
+
+@contextlib.contextmanager
+def tracing() -> Iterator[None]:
+    """Record the program's spans inside it (they are recorded under a
+    recording torch.profiler too); nests, and holds for every thread."""
+    global _depth
+    with _lock:
+        _depth += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _depth -= 1
+
+
+def spans() -> List[Span]:
+    """The recorded spans, by start."""
+    with _lock:
+        out = list(_done)
+    return sorted(out, key=lambda s: s.start_ns)
+
+
+def dropped() -> int:
+    """Spans not kept since the last reset (past MAX_SPANS)."""
+    return _dropped
+
+
+def totals(recorded=None) -> Dict[str, dict]:
+    """Per span name, over the recorded spans (or `recorded`): host_s (the
+    seconds they took), calls, and the sum of each of their counts (a
+    pinned count sums the page-locked copies)."""
+    out: Dict[str, dict] = {}
+    for s in spans() if recorded is None else recorded:
+        t = out.setdefault(s.name, {"host_s": 0.0, "calls": 0})
+        t["host_s"] += (s.end_ns - s.start_ns) / 1e9
+        t["calls"] += 1
+        for k, v in s.counts.items():
+            t[k] = t.get(k, 0) + v
+    return dict(sorted(out.items()))
+
+
+def reset() -> None:
+    """Forget the recorded spans and the dropped count."""
+    global _dropped
+    with _lock:
+        _done.clear()
+        _dropped = 0
+
+
+# -- reading a profiler trace ------------------------------------------------
+#
+# The program's spans in a torch.profiler trace are CPU ranges named
+# PREFIX + span.  These read a trace's events (prof.events()): the
+# device's operations and the runtime call that launched each, the
+# device's idle gaps, and those gaps put down to the innermost range the
+# host was in.  `skip` names the prefixes of other ranges that the
+# profiler draws on the device's timeline over their kernels (a
+# user-scope record_function's), which are no operations of the device.
+
+
+def is_device_op(ev, skip=()) -> bool:
+    """A kernel, copy or fill on the device (not a range drawn there)."""
+    if ev.device_type.name != "CUDA":
+        return False
+    if getattr(ev, "is_user_annotation", False):
+        return False
+    return not ev.name.startswith((PREFIX, *skip))
+
+
+def device_by_correlation(events, skip=()) -> Dict[int, list]:
+    """The device's operations by the correlation id of the runtime call
+    (cudaLaunchKernel, cudaGraphLaunch, cudaMemcpyAsync, ...) that
+    launched them: a graph launch's kernels under its cudaGraphLaunch."""
+    out: Dict[int, list] = {}
+    for ev in events:
+        if is_device_op(ev, skip):
+            out.setdefault(ev.id, []).append(ev)
+    return out
+
+
+def host_ranges(events, prefix: str = PREFIX, thread=None) -> list:
+    """The CPU ranges named prefix + span, [(start us, end us, span)], of
+    one thread (the first range's where None)."""
+    rs = [(ev.time_range.start, ev.time_range.end, ev.name[len(prefix):],
+           ev.thread) for ev in events
+          if ev.device_type.name == "CPU" and ev.name.startswith(prefix)]
+    if not rs:
+        return []
+    if thread is None:
+        thread = min(rs)[3]
+    return [r[:3] for r in rs if r[3] == thread]
+
+
+def innermost(ranges: list) -> list:
+    """Properly nested ranges [(start, end, name)] of one thread flattened
+    into [(start, end, name)] pieces, each under the innermost range."""
+    out, stack, t = [], [], None
+    for s, e, name in sorted(ranges, key=lambda r: (r[0], -r[1])):
+        while stack and stack[-1][1] <= s:
+            _, se, sn = stack.pop()
+            out.append((t, se, sn))
+            t = se
+        if stack and t < s:
+            out.append((t, s, stack[-1][2]))
+        stack.append((s, e, name))
+        t = s
+    while stack:
+        _, se, sn = stack.pop()
+        out.append((t, se, sn))
+        t = se
+    return [p for p in out if p[1] > p[0]]
+
+
+def idle_gaps(events, skip=()) -> list:
+    """The device's idle intervals [(start us, end us)] between the first
+    and the last of its operations."""
+    ops = sorted((ev.time_range.start, ev.time_range.end) for ev in events
+                 if is_device_op(ev, skip))
+    gaps, end = [], None
+    for s, e in ops:
+        if end is not None and s > end:
+            gaps.append((end, s))
+        end = e if end is None else max(end, e)
+    return gaps
+
+
+def idle_by_range(gaps: list, pieces: list) -> Dict[str, float]:
+    """Seconds of the gaps under each name of `pieces` (innermost()'s
+    output), and under "outside" what no piece covers."""
+    out: Dict[str, float] = {}
+    j = 0
+    for g0, g1 in gaps:
+        covered = 0.0
+        while j < len(pieces) and pieces[j][1] <= g0:
+            j += 1
+        k = j
+        while k < len(pieces) and pieces[k][0] < g1:
+            lo, hi = max(g0, pieces[k][0]), min(g1, pieces[k][1])
+            if hi > lo:
+                name = pieces[k][2]
+                out[name] = out.get(name, 0.0) + (hi - lo) / 1e6
+                covered += hi - lo
+            k += 1
+        out["outside"] = out.get("outside", 0.0) + (g1 - g0 - covered) / 1e6
+    return out
+
+
 class StageTimer:
-    """Wall-clock time per named host stage (for the device's own time,
-    `device_trace`)."""
+    """Wall-clock time per named host stage; each stage is also a span
+    (`span`), so that a stage and the program's spans inside it form one
+    tree (for the device's own time, `device_trace`)."""
 
     def __init__(self):
         self.totals: Dict[str, float] = {}
@@ -148,7 +401,8 @@ class StageTimer:
     def stage(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.totals[name] = self.totals.get(name, 0.0) + dt
@@ -163,12 +417,12 @@ class StageTimer:
 @contextlib.contextmanager
 def device_trace(log_dir: str, enabled: bool = True) -> Iterator[None]:
     """torch.profiler trace of a region (host, and the card's kernels where
-    there is one), written as a Chrome trace `trace.json` into log_dir;
-    nothing when disabled, so callers can gate on a flag."""
+    there is one), written as a Chrome trace `trace.json` into log_dir,
+    the program's spans in it (PREFIX); nothing when disabled, so callers
+    can gate on a flag."""
     if not enabled:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -199,8 +453,6 @@ def debug_block(pcm: np.ndarray, block_index: int, cfg=None,
     bool[bands]; smr f32[2, bands] the selected SMRs; bits i32[2, bands]
     the allocation; sf i32[2, bands] scale factors; overall i32[2];
     budget f64[]."""
-    import torch
-
     from pactpu_torch.codec import exact
     from pactpu_torch.codec.engine import (_transform, device_tables,
                                            resolve_device)

@@ -156,10 +156,9 @@ def test_stream_push_dispatch_is_the_pushs(cpu_programs, long_pcm):
     gold = Engine(device="cpu").encode(pcm)
     enc = tstream.StreamingEncoder(device="cpu")
     parts = [enc.header(pcm.shape[0]), enc.push(pcm[:20 * 1024])]
-    blocks = pcm[20 * 1024:50 * 1024].T.reshape(2, 30, 1024)
-    seq = enc._upload(blocks)
+    host, seq = enc._upload([pcm[20 * 1024:50 * 1024]])
     assert seq.shape == (2, 31 * 1024) and seq.dtype == torch.int16
-    parts.append(enc._finish(enc._dispatch(seq), blocks))
+    parts.append(enc._finish(enc._dispatch(seq), host))
     enc._n_samples += 30 * 1024
     parts += [enc.push(pcm[50 * 1024:]), enc.flush()]
     assert b"".join(parts) == gold
