@@ -1,10 +1,13 @@
-"""ctypes binding to the repository's native bitstream runtime
-(csrc/wakbits.cc), the host half of the stream format.
+"""ctypes binding to the repository's native bitstream runtime, the host
+half of the stream format: csrc/wakbits.cc (which the JAX package builds
+too) and the port's pactpu_torch/csrc/wakbits_ranges.cc, which includes
+it and adds its parse and repack over ranges of channel-blocks on several
+host threads.
 
-The library is compiled at first use with ``g++ -O3 -shared -fPIC`` from
-the source in place into ``pactpu_torch/_build/`` (git-ignored), and rebuilt
-when the source is newer than the library.  There is no pure-Python
-fallback: a failed build raises.
+The library is compiled at first use with ``g++ -O3 -shared -fPIC
+-pthread`` from wakbits_ranges.cc in place into ``pactpu_torch/_build/``
+(git-ignored), and rebuilt when either source is newer than the library.
+There is no pure-Python fallback: a failed build raises.
 
 Bound here: ``unpack_file`` (the Huffman bit-walk parser of the decoder),
 ``pack_file`` (the serializer, which the baseline .pac encoder uses),
@@ -12,6 +15,16 @@ Bound here: ``unpack_file`` (the Huffman bit-walk parser of the decoder),
 ``assemble_rows`` / ``assemble_rows_flat`` (framing of device-packed payload
 rows) and ``init_tables`` (the decode trees of the shipped or a trained
 table set, uploaded into the library's process-wide table slot).
+
+``unpack_file`` and ``repack_codes`` cut their channel-blocks into
+contiguous ranges (of whole blocks, for the parse) and run wakbits.cc's
+serial loop on each at once, one host thread a range; the outputs are
+the serial loop's bit for bit, and an error names the first bad
+channel-block as the serial loop does.  The number of ranges is the
+smaller of the CPUs the process may use and the channel-blocks over
+MIN_RANGE, so a short input (a stream push's 32 channel-blocks) runs the
+serial loop on the calling thread.  The spans "parse" and "repack" count
+the ranges that ran as ``threads``.
 """
 
 from __future__ import annotations
@@ -26,8 +39,19 @@ import numpy as np
 from pactpu_torch.utils.metrics import span
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_PKG), "csrc", "wakbits.cc")
+_SRC = os.path.join(_PKG, "csrc", "wakbits_ranges.cc")
+# the serial runtime, which _SRC includes
+_SERIAL_SRC = os.path.join(os.path.dirname(_PKG), "csrc", "wakbits.cc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+
+# The fewest channel-blocks a host thread of the parse or the repack takes:
+# a call of n channel-blocks runs on at most n // MIN_RANGE threads (one
+# below 2 * MIN_RANGE).  On the 8-CPU host of an H100 machine
+# (tools/native_ranges.py, 17-20 us a channel-block on one thread) a
+# thread took 0.25-0.45 ms to start, under a tenth of a 256-block range's
+# work: calls of 512 channel-blocks and more ran 1.5-1.9x faster on 2
+# threads than on one, and ranges of 64 ran slower than fewer threads.
+MIN_RANGE = 256
 
 _lock = threading.Lock()
 _lib = None
@@ -38,12 +62,14 @@ _tables_ready = None
 
 def _build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, "libwakbits.so")
+    so = os.path.join(BUILD_DIR, "libwakbits_ranges.so")
     if (not os.path.exists(so)
-            or os.path.getmtime(so) < os.path.getmtime(_SRC)):
+            or os.path.getmtime(so) < max(os.path.getmtime(_SRC),
+                                          os.path.getmtime(_SERIAL_SRC))):
         tmp = f"{so}.{os.getpid()}.tmp"
-        res = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp,
-                              _SRC], capture_output=True, text=True)
+        res = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-pthread",
+                              "-o", tmp, _SRC],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"building {_SRC} failed:\n{res.stderr}")
         os.replace(tmp, so)
@@ -71,21 +97,21 @@ def _load():
         lib.wak_assemble_rows_flat.argtypes = [u32p, i32p, i32p,
                                                ctypes.c_int, u8p,
                                                ctypes.c_int64]
-        lib.wak_repack_codes.restype = ctypes.c_int64
-        lib.wak_repack_codes.argtypes = [ctypes.c_int, ctypes.c_int, i32p,
-                                         ctypes.c_int, i32p, i32p, u32p,
-                                         ctypes.c_int]
+        lib.wak_repack_codes_ranges.restype = ctypes.c_int64
+        lib.wak_repack_codes_ranges.argtypes = [
+            ctypes.c_int, ctypes.c_int, i32p, ctypes.c_int, i32p, i32p,
+            u32p, ctypes.c_int, ctypes.c_int]
         lib.wak_pack_file.restype = ctypes.c_int64
         lib.wak_pack_file.argtypes = (
             [ctypes.c_int, ctypes.c_int, i32p] + [ctypes.c_int] * 6
             + [i32p] * 8 + [u8p, ctypes.c_int64])
         lib.wak_count_blocks.restype = ctypes.c_int64
         lib.wak_count_blocks.argtypes = [u8p, ctypes.c_int64]
-        lib.wak_unpack_file.restype = ctypes.c_int64
-        lib.wak_unpack_file.argtypes = (
+        lib.wak_unpack_file_ranges.restype = ctypes.c_int64
+        lib.wak_unpack_file_ranges.argtypes = (
             [u8p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, i32p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int] + [i32p] * 6)
+             ctypes.c_int, ctypes.c_int] + [i32p] * 6 + [ctypes.c_int])
         _lib = lib
     return _lib
 
@@ -207,16 +233,27 @@ def assemble_rows_flat(words_flat: np.ndarray, word_offsets: np.ndarray,
     return out[:n].tobytes()
 
 
+def _n_ranges(n_cblocks: int, most: int, ranges) -> int:
+    """The ranges (host threads) a call over n_cblocks channel-blocks
+    runs: `ranges` if given (tests), else the smaller of the CPUs this
+    process may use and n_cblocks // MIN_RANGE; at least 1, at most
+    `most`."""
+    if ranges is None:
+        ranges = min(len(os.sched_getaffinity(0)), n_cblocks // MIN_RANGE)
+    return max(1, min(ranges, most))
+
+
 def repack_codes(mant: np.ndarray, ba: np.ndarray, n_lines: np.ndarray,
-                 n_words: int) -> np.ndarray:
+                 n_words: int, *, _ranges=None) -> np.ndarray:
     """Repack decoded mantissa codes [R, total_lines] into fixed-width
-    MSB-first u32 words [R, n_words] (ba[b] bits per line of band b); the
-    span "repack" counts the rows."""
-    with span("repack", rows=len(mant)):
-        return _repack_codes(mant, ba, n_lines, n_words)
+    MSB-first u32 words [R, n_words] (ba[b] bits per line of band b), in
+    ranges of rows on several host threads (`_ranges` sets their number,
+    for tests); the span "repack" counts the rows and the threads."""
+    with span("repack", rows=len(mant)) as sp:
+        return _repack_codes(mant, ba, n_lines, n_words, sp, _ranges)
 
 
-def _repack_codes(mant, ba, n_lines, n_words):
+def _repack_codes(mant, ba, n_lines, n_words, sp, ranges):
     lib = _load()
     m_ = _i32(mant)
     ba_ = _i32(ba)
@@ -224,11 +261,14 @@ def _repack_codes(mant, ba, n_lines, n_words):
     r, total_lines = m_.shape
     if ba_.shape != (r, nl.shape[0]) or int(nl.sum()) != total_lines:
         raise ValueError("repack_codes: inconsistent shapes")
+    n = _n_ranges(r, r, ranges)
+    if sp is not None:
+        sp.counts["threads"] = n
     words = np.zeros((r, n_words), np.uint32)
-    rc = lib.wak_repack_codes(r, ba_.shape[1], _ptr(nl, ctypes.c_int32),
-                              total_lines, _ptr(ba_, ctypes.c_int32),
-                              _ptr(m_, ctypes.c_int32),
-                              _ptr(words, ctypes.c_uint32), n_words)
+    rc = lib.wak_repack_codes_ranges(
+        r, ba_.shape[1], _ptr(nl, ctypes.c_int32), total_lines,
+        _ptr(ba_, ctypes.c_int32), _ptr(m_, ctypes.c_int32),
+        _ptr(words, ctypes.c_uint32), n_words, n)
     if rc < 0:
         raise RuntimeError("wak_repack_codes: words buffer too small")
     return words
@@ -236,23 +276,25 @@ def _repack_codes(mant, ba, n_lines, n_words):
 
 def unpack_file(payload: bytes, n_lines: np.ndarray, n_scale_bits: int,
                 n_mant_size_bits: int, n_table_id_bits: int,
-                read_lrms: bool = True, n_channels: int = 2, tables=None):
+                read_lrms: bool = True, n_channels: int = 2, tables=None,
+                *, _ranges=None):
     """Parse every channel-block payload in `payload` (past the header),
     through the decode trees of `tables` (init_tables; None = the shipped
-    set).
+    set), in ranges of whole blocks on several host threads (`_ranges`
+    sets their number, for tests).
 
     Returns dict of arrays keyed overall/table_id/ba/sf/mant [R, ...] and
     lrms [R//n_channels, bands], plus the parsed channel-block count R.
-    The span "parse" counts the payload's bytes.
+    The span "parse" counts the payload's bytes and the threads.
     """
-    with span("parse", bytes_in=len(payload)):
+    with span("parse", bytes_in=len(payload)) as sp:
         return _unpack_file(payload, n_lines, n_scale_bits,
                             n_mant_size_bits, n_table_id_bits, read_lrms,
-                            n_channels, tables)
+                            n_channels, tables, sp, _ranges)
 
 
 def _unpack_file(payload, n_lines, n_scale_bits, n_mant_size_bits,
-                 n_table_id_bits, read_lrms, n_channels, tables):
+                 n_table_id_bits, read_lrms, n_channels, tables, sp, ranges):
     lib = _load()
     if n_table_id_bits > 0:
         init_tables(tables)
@@ -261,6 +303,10 @@ def _unpack_file(payload, n_lines, n_scale_bits, n_mant_size_bits,
     r = int(lib.wak_count_blocks(dp, len(data)))
     if r == 0:
         raise ValueError("no channel-blocks found in payload")
+    c = int(n_channels)
+    n = _n_ranges(r, -(-r // c), ranges)
+    if sp is not None:
+        sp.counts["threads"] = n
     nl = _i32(n_lines)
     n_bands = nl.shape[0]
     total_lines = int(nl.sum())
@@ -269,14 +315,14 @@ def _unpack_file(payload, n_lines, n_scale_bits, n_mant_size_bits,
     ba = np.zeros((r, n_bands), np.int32)
     sf = np.zeros((r, n_bands), np.int32)
     mant = np.zeros((r, total_lines), np.int32)
-    lrms = np.zeros((-(-r // int(n_channels)), n_bands), np.int32)
-    rc = lib.wak_unpack_file(
+    lrms = np.zeros((-(-r // c), n_bands), np.int32)
+    rc = lib.wak_unpack_file_ranges(
         dp, len(data), r, n_bands, _ptr(nl, ctypes.c_int32), total_lines,
         n_scale_bits, n_mant_size_bits, n_table_id_bits,
-        1 if read_lrms else 0, int(n_channels),
+        1 if read_lrms else 0, c,
         _ptr(overall, ctypes.c_int32), _ptr(table_id, ctypes.c_int32),
         _ptr(ba, ctypes.c_int32), _ptr(sf, ctypes.c_int32),
-        _ptr(mant, ctypes.c_int32), _ptr(lrms, ctypes.c_int32))
+        _ptr(mant, ctypes.c_int32), _ptr(lrms, ctypes.c_int32), n)
     if rc < 0:
         raise ValueError(f"corrupt payload at channel-block {-rc - 1}")
     return dict(overall=overall, table_id=table_id, ba=ba, sf=sf,

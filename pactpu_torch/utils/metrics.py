@@ -271,14 +271,15 @@ def dropped() -> int:
 def totals(recorded=None) -> Dict[str, dict]:
     """Per span name, over the recorded spans (or `recorded`): host_s (the
     seconds they took), calls, and the sum of each of their counts (a
-    pinned count sums the page-locked copies)."""
+    pinned count sums the page-locked copies), but for `threads` (the
+    native parse's and repack's ranges), the most any call ran."""
     out: Dict[str, dict] = {}
     for s in spans() if recorded is None else recorded:
         t = out.setdefault(s.name, {"host_s": 0.0, "calls": 0})
         t["host_s"] += (s.end_ns - s.start_ns) / 1e9
         t["calls"] += 1
         for k, v in s.counts.items():
-            t[k] = t.get(k, 0) + v
+            t[k] = max(t.get(k, 0), v) if k == "threads" else t.get(k, 0) + v
     return dict(sorted(out.items()))
 
 
