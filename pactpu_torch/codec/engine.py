@@ -95,11 +95,15 @@ from pactpu_torch.utils.metrics import span
 
 DEFAULT_CHUNK_BLOCKS = 512
 
-# u32 words per channel-block row of the on-device packer.  A chunk whose
-# rows need more is re-finalized with the next width of _WIDE_WORDS.
+# u32 words per channel-block row of the on-device packer at the default
+# rate (2.27 bits a sample); pack_widths scales it to a configuration's bit
+# budget.  A chunk whose rows need more is re-finalized with the next width
+# of _WIDE_WORDS.
 PACK_WORDS = 256
-# Average u32 words per row budgeted for the dense payload download (the
-# chunk total absorbs per-row spikes); past it, the padded rows download.
+# Average u32 words per row budgeted for the dense payload download at the
+# default rate (the chunk total absorbs per-row spikes), scaled as
+# PACK_WORDS is; past it, the padded rows download.  The host-parse decode
+# budgets its upload by the same words (_decode_layouts).
 PACK_DENSE_WORDS = 112
 # Per-channel-block ceiling for the shipped tables: overall(4) + tid(4) +
 # 25 * (ba 4 + sf 4) + 25 lrms + 1024 signs + 1024 * (max escape 13 + max
@@ -116,6 +120,38 @@ _PAYLOAD_WORD_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 
 
 PRECISIONS = {"f32": np.float32, "f64": np.float64}
+
+# the bit budget PACK_WORDS and PACK_DENSE_WORDS were sized on
+_PACK_BASE_BITS = CodecConfig().bit_budget()
+
+
+def pack_widths(cfg: CodecConfig) -> tuple:
+    """(row words, dense words a row) of the on-device packer for cfg:
+    PACK_WORDS and PACK_DENSE_WORDS times cfg's bit budget over the
+    default's, never less, the row rounded up to 32 words.  A row holds
+    its channel's budget, the reservoir's loan and channel 0's leftover,
+    which grow with the budget (at 4.93 bits a sample the loans reach a
+    whole budget): 608 and 257 words there."""
+    s = max(1.0, cfg.bit_budget() / _PACK_BASE_BITS)
+    words = min(PACK_WORDS_MAX, 32 * int(np.ceil(PACK_WORDS * s / 32)))
+    return words, int(np.ceil(PACK_DENSE_WORDS * s))
+
+
+def _decode_layouts() -> tuple:
+    """The host-parse decode's upload layouts, in order: (the words a row
+    that a chunk's dense upload budgets, the width of the rows the device
+    expands them to).  A stream takes the first whose budget holds each of
+    its chunks and whose width holds its widest row, past the last its
+    padded rows.  At 2.27 bits a sample the widest row takes 96 or 128
+    words, so the first; 256 holds any row of up to 8,192 mantissa bits;
+    at 4.93 the rows average 129 words, past the first budget, so the
+    last.  The budget is of mantissa bits alone, not of the coded rows
+    that pack_widths budgets, so twice the default's holds 4.93's with 1.7
+    times to spare.  The decode program is keyed by the layout, not by the
+    stream's widest row: a stream's header carries no rate, and one
+    program a chunk size and layout serves every stream that fits it."""
+    return ((PACK_DENSE_WORDS, 128), (PACK_DENSE_WORDS, 256),
+            (2 * PACK_DENSE_WORDS, 512))
 
 
 def _np_dtype(precision: str):
@@ -611,6 +647,35 @@ def reservoir_extras(savings: np.ndarray, leftover: np.ndarray,
     return extras, (deposit, extra)
 
 
+class EncodeStats(dict):
+    """One encode's statistics by name (savings; extras; in the reservoir
+    mode measure_savings and measure_leftover): device tensors until first
+    read, then host arrays of the file's b blocks."""
+
+    def __init__(self, b: int = 0):
+        super().__init__()
+        self.b = b
+
+    def host(self, key: str):
+        v = self.get(key)
+        if v is not None and not isinstance(v, np.ndarray):
+            v = self[key] = v.cpu().numpy()[:self.b]
+        return v
+
+    @property
+    def extras(self):
+        """Channel 0's extra bits of each block."""
+        return self.host("extras")
+
+    @property
+    def measure(self):
+        """(savings [b, C], leftover [b]) of the reservoir's measurement
+        pass (extra bits 0); None in the other rate modes."""
+        if self.get("measure_savings") is None:
+            return None
+        return self.host("measure_savings"), self.host("measure_leftover")
+
+
 def resolve_device(device, who: str = "Engine") -> torch.device:
     """torch.device(device), raising where it names CUDA and there is no
     card: every entry point of the port runs on the card unless the caller
@@ -727,10 +792,11 @@ class Engine:
         # pack_file), no K3 launch, the same bytes
         self.device_pack = device_pack is not False
         self.debug_checks = debug_checks
-        # what last_savings / last_measure / last_extras read: device
-        # tensors until first read (the encode does not wait for them)
-        self._last = {}
-        self._last_b = 0
+        # what last_savings / last_measure / last_extras read, and of
+        # encode_many each file's (last_many): device tensors until first
+        # read (the encode does not wait for them)
+        self._last = EncodeStats()
+        self.last_many: list = []
         _full_fp32()
 
     @property
@@ -768,18 +834,12 @@ class Engine:
             self._dev[key] = dev
         return self._dev[key]
 
-    def _last_host(self, key: str):
-        v = self._last.get(key)
-        if v is not None and not isinstance(v, np.ndarray):
-            v = self._last[key] = v.cpu().numpy()[:self._last_b]
-        return v
-
     @property
     def last_savings(self):
         """Huffman bits saved by the last encode (the reference program's
         bits-saved readout, pacfile.py:439), summed over its blocks;
         fetched at first read.  None before a .wak encode."""
-        v = self._last_host("savings")
+        v = self._last.host("savings")
         return None if v is None else int(v.sum())
 
     @property
@@ -788,16 +848,13 @@ class Engine:
         encode's measurement pass (extra bits 0), the numbers the reservoir
         replay ran on; None in the other rate modes.  Fetched at first
         read."""
-        if self._last.get("measure_savings") is None:
-            return None
-        return (self._last_host("measure_savings"),
-                self._last_host("measure_leftover"))
+        return self._last.measure
 
     @property
     def last_extras(self):
         """Channel 0's extra bits of each block of the last encode (any
         rate mode), fetched at first read."""
-        return self._last_host("extras")
+        return self._last.extras
 
     def _chunk(self, b: int) -> int:
         return self.chunk_blocks or _pad_blocks(b)
@@ -957,8 +1014,7 @@ class Engine:
         cfg = self.cfg
         offs = _offsets(sizes)
         dev = self.consts()
-        self._last = {}
-        self._last_b = b
+        self._last = EncodeStats(b)
 
         if self.rate_mode == "exact":
             extras_chunks, carry = exact.exact_extras_chunked(
@@ -1004,11 +1060,13 @@ class Engine:
         debug_checks=True) checks it here), and the staged download: each
         chunk's payload rows compacted by their word counts (device
         packing, `dense`), or the fields the host packer takes
-        (device_pack=False).  The span "final" counts the rows and the
-        real ones."""
+        (device_pack=False).  The span "final" counts the rows, the real
+        ones and the packer's words a row (pack_widths; 0 unpacked)."""
         cfg, dev = self.cfg, self.consts()
         c = cfg.n_channels
-        pack_words = PACK_WORDS if self.device_pack else 0
+        pack_words, dense = pack_widths(cfg)
+        if not self.device_pack:
+            pack_words = 0
         programmed = programs.encode_programs(self)["final"]
 
         def stage(mixed, smr, lrms, overall, extras):
@@ -1017,13 +1075,13 @@ class Engine:
                            pack_words=pack_words)
             if pack_words:
                 out["dense"] = bitpack.compact_rows(
-                    out["words"], out["nbits"],
-                    mixed.shape[0] * c * PACK_DENSE_WORDS)
+                    out["words"], out["nbits"], mixed.shape[0] * c * dense)
             return out
 
         with span("final") as sp:
             if sp is not None:
-                sp.counts.update(rows=sum(sizes), real_rows=b)
+                sp.counts.update(rows=sum(sizes), real_rows=b,
+                                 words=pack_words)
             outs = [self._run_stage("final", programmed, size,
                                     (cfg, pack_words), stage,
                                     (*(a[k] for k in _ANALYSIS_KEYS), ex))
@@ -1078,12 +1136,13 @@ class Engine:
         """Blocking half of an encode: ONE download of every chunk's dense
         payload (rows compacted by their word counts, nbits appended), then
         host framing (or, with device_pack=False, _host_pack).  Fallbacks:
-        a chunk whose rows overflow PACK_WORDS is re-finalized with a wider
-        packer, launch by launch; a chunk whose dense total passes its cap
-        downloads its padded rows instead.  header (a stream's) goes in
-        front of the payload.  Spans: "download" (the dense download), then
-        "frame" (the framing; the payload's bytes, the chunks re-finalized
-        wide and the chunks that took their padded rows)."""
+        a chunk whose rows overflow the packer's width (pack_widths) is
+        re-finalized with a wider packer, launch by launch; a chunk whose
+        dense total passes its cap downloads its padded rows instead.
+        header (a stream's) goes in front of the payload.  Spans:
+        "download" (the dense download), then "frame" (the framing; the
+        payload's bytes, the chunks re-finalized wide and the chunks that
+        took their padded rows)."""
         cfg = self.cfg
         c = cfg.n_channels
         outs, b, sizes = st["outs"], st["b"], st["sizes"]
@@ -1091,12 +1150,13 @@ class Engine:
         if not self.device_pack:
             return self._host_pack(st, header)
         width = outs[0]["words"].shape[1]
+        dense = pack_widths(cfg)[1]
         dn = _host_u32(st["dense"])
         with span("frame") as sp:
             chunks, pos = [], 0
             for size in sizes:
                 rows = size * c
-                cap = rows * PACK_DENSE_WORDS
+                cap = rows * dense
                 nbits = dn[pos + cap:pos + cap + rows].astype(np.int32)
                 counts = np.minimum((nbits.astype(np.int64) + 31) // 32, width)
                 flat = dn[pos:pos + cap] if int(counts.sum()) <= cap else None
@@ -1161,7 +1221,7 @@ class Engine:
         c, half, offs = cfg.n_channels, cfg.n_mdct_lines, up["offs"]
         dev = self.consts("f32")          # as pactpu: .pac encodes in f32
         programmed = programs.encode_programs(self)["baseline"]
-        self._last = {}
+        self._last = EncodeStats()
 
         def stage(x):
             o = encode_baseline(cfg, _overlap_frames(x, half), dev)
@@ -1237,14 +1297,23 @@ class Engine:
         """Batch encode: every file's device work is queued before the
         first payload download blocks.  The device holds every staged
         file.  The .pac coder encodes file by file.  last_savings,
-        last_measure and last_extras describe the last file."""
+        last_measure and last_extras describe the last file, last_many
+        each file's (EncodeStats, in order)."""
         if self.fmt == "pac":
-            return [self.encode(p) for p in pcms]
+            out, many = [], []
+            for p in pcms:
+                out.append(self.encode(p))
+                many.append(self._last)
+            self.last_many = many
+            return out
         staged = self._encode_staged(pcms)
-        out = []
+        out, many = [], []
         for header, st in staged:
+            self._last = st["stats"]
             with span("encode", blocks=0):
                 out.append(self._finish_encode(st, header))
+            many.append(self._last)
+        self.last_many = many
         return out
 
     def _encode_staged(self, pcms) -> list:
@@ -1258,6 +1327,7 @@ class Engine:
                 st = self._encode_chunks(p)
                 if sp is not None:
                     sp.counts["blocks"] = st["b"]
+            st["stats"] = self._last
             staged.append((write_header(self.cfg, p.shape[0])[0], st))
         return staged
 
@@ -1274,6 +1344,7 @@ class Engine:
             return (results, streams) if return_streams else results
         streams, dec = [], []
         for header, st in self._encode_staged(pcms):
+            self._last = st["stats"]
             with span("encode", blocks=0):
                 streams.append(self._finish_encode(st, header))
             with span("decode") as sp:
@@ -1449,8 +1520,8 @@ class Engine:
                                    cfg: CodecConfig) -> dict:
         """Stage a host-parse decode: native parse, repack of the mantissa
         codes into fixed-width words, and compaction of each chunk's rows
-        into one flat buffer (padded rows where a chunk's total exceeds
-        PACK_DENSE_WORDS per row: the span "compact" counts that
+        into one flat buffer in the first of _decode_layouts that holds
+        them (padded rows past the last: the span "compact" counts that
         overflow)."""
         c = cfg.n_channels
         parsed, rows_pad, rowbits, n_words = self._host_parse(data[off:], cfg)
@@ -1470,39 +1541,43 @@ class Engine:
             lrms = np.pad(parsed["lrms"] != 0, ((0, b_pad - b), (0, 0)))
 
             counts = np.minimum((rowbits + 31) // 32, n_words)
-            col = np.arange(n_words)[None, :]
-            words = []
-            for k, sz in enumerate(sizes):
-                i, rpc = offs[k] * c, sz * c
-                cap_k = rpc * PACK_DENSE_WORDS
-                cc = counts[i:i + rpc]
-                if int(cc.sum()) > cap_k:
-                    words = None             # dense overflow: padded rows
-                    break
-                fl = rows_pad[i:i + rpc][col < cc[:, None]]
-                words.append(np.pad(fl, (0, cap_k - fl.shape[0])))
-            flat = words is not None
-            if not flat:
+            totals = [int(counts[offs[k] * c:offs[k + 1] * c].sum())
+                      for k in range(len(sizes))]
+            layout = next(((dense, width) for dense, width in _decode_layouts()
+                           if width >= n_words and all(
+                               t <= sz * c * dense
+                               for t, sz in zip(totals, sizes))), None)
+            if layout is not None:
+                col = np.arange(n_words)[None, :]
+                words = []
+                for k, sz in enumerate(sizes):
+                    i, rpc = offs[k] * c, sz * c
+                    fl = rows_pad[i:i + rpc][col < counts[i:i + rpc, None]]
+                    words.append(np.pad(fl, (0, rpc * layout[0]
+                                             - fl.shape[0])))
+            else:                            # dense overflow: padded rows
                 rows_all = d2(rows_pad).reshape(b_pad * c, n_words)
                 words = [rows_all[offs[k] * c:offs[k + 1] * c]
                          for k in range(len(sizes))]
             if sp is not None:
-                sp.counts["overflow"] = int(not flat)
+                sp.counts["overflow"] = int(layout is None)
         dev = self.consts(cfg=cfg)
         programmed = programs.decode_programs(self)
+        width = n_words if layout is None else layout[1]
 
         def stage(ba_k, sf_k, words_k, overall_k, lrms_k, carry):
-            if flat:
+            if layout is not None:
                 words_k = expand_flat(
                     words_k, ba_k.reshape(-1, ba_k.shape[-1]).to(
-                        torch.int32), n_words, dev["lay"])
+                        torch.int32), width, dev["lay"])
             return decode_chunk(cfg, ba_k, sf_k, words_k, overall_k, lrms_k,
                                 carry, dev)
 
         def run(ba_k, sf_k, words_k, overall_k, lrms_k, carry):
             return (*self._run_stage(
                 "decode", programmed, ba_k.shape[0],
-                (replace(cfg, window=self.cfg.window), n_words, flat),
+                (replace(cfg, window=self.cfg.window), width,
+                 layout is not None),
                 stage, (ba_k, sf_k, words_k, overall_k, lrms_k, carry)),
                 None)
 

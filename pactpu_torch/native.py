@@ -248,8 +248,12 @@ def repack_codes(mant: np.ndarray, ba: np.ndarray, n_lines: np.ndarray,
     """Repack decoded mantissa codes [R, total_lines] into fixed-width
     MSB-first u32 words [R, n_words] (ba[b] bits per line of band b), in
     ranges of rows on several host threads (`_ranges` sets their number,
-    for tests); the span "repack" counts the rows and the threads."""
-    with span("repack", rows=len(mant)) as sp:
+    for tests); the span "repack" counts the rows, their words (n_words),
+    their mantissa bits (ba times n_lines, summed) and the threads."""
+    with span("repack", rows=len(mant), words=n_words) as sp:
+        if sp is not None:
+            sp.counts["bits"] = int((np.asarray(ba, np.int64)
+                                     @ np.asarray(n_lines, np.int64)).sum())
         return _repack_codes(mant, ba, n_lines, n_words, sp, _ranges)
 
 

@@ -249,8 +249,8 @@ def encode_distributed(pcm: np.ndarray, cfg: Optional[CodecConfig] = None,
     # widest, and a shard whose words exceed its dense cap re-runs the
     # padded rows (the Engine's fallbacks), each decided over the mesh
     rows_per_dev = c * blocks_per_dev
-    dense_cap = rows_per_dev * E.PACK_DENSE_WORDS
-    pack_words = E.PACK_WORDS
+    pack_words, dense = E.pack_widths(cfg)
+    dense_cap = rows_per_dev * dense
     out, hist = shard.sharded_encode(cfg, mesh, x, extras, pack_words,
                                      dense_cap, **run)
     if _global_masked_max(mesh, [o["nbits"] for o in out], c * b) \
@@ -349,9 +349,10 @@ def encode_range(pcm: np.ndarray, block_start: int, n_real: int,
                                  cfg.reservoir_withdraw_divisor)
         extras = torch.from_numpy(ex.astype(np.float32)).to(dev_t)
 
-    out, _ = shard._final_pieces(cfg, eng, dev, parts, extras, E.PACK_WORDS)
+    pack_words = E.pack_widths(cfg)[0]
+    out, _ = shard._final_pieces(cfg, eng, dev, parts, extras, pack_words)
     nbits = out["nbits"].cpu().numpy()
-    if int(nbits.max(initial=0)) > 32 * E.PACK_WORDS:
+    if int(nbits.max(initial=0)) > 32 * pack_words:
         out, _ = shard._final_pieces(cfg, eng, dev, parts, extras,
                                     E.PACK_WORDS_MAX)
         nbits = out["nbits"].cpu().numpy()

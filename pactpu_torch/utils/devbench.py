@@ -210,7 +210,9 @@ def device_stages(pcm: np.ndarray, blocks: int, eng) -> tuple:
     glob[:, half:half + pcm.shape[0]] = pcm.T
     frames = E._overlap_frames(torch.from_numpy(glob).to(device), half)
     dev = eng.consts()
-    pack_words = E.PACK_WORDS if eng.device_pack else 0
+    pack_words, dense = E.pack_widths(cfg)
+    if not eng.device_pack:
+        pack_words = 0
     zeros = torch.zeros(blocks, device=device)
     a_dev = E.analyze(cfg, frames, dev)
     m_dev = E.finalize(cfg, a_dev, zeros, dev, measure_only=True)
@@ -233,7 +235,7 @@ def device_stages(pcm: np.ndarray, blocks: int, eng) -> tuple:
                                        pack_words=pack_words),
     }
     if "words" in out_dev:
-        cap = blocks * c * E.PACK_DENSE_WORDS
+        cap = blocks * c * dense
         stages["compact"] = lambda: bitpack.compact_rows(
             out_dev["words"], out_dev["nbits"], cap)
 

@@ -161,6 +161,10 @@ def collect_encode_stats(out: Dict[str, np.ndarray], n_blocks: int,
 PREFIX = "pactpu_torch:"
 # spans kept in memory; later ones are counted as dropped
 MAX_SPANS = 1 << 17
+# counts that give a call's width, not an amount of work (the native
+# parse's and repack's threads; the final pass's and the repack's words a
+# row): totals() keeps the most of any call, and sums every other count
+WIDTHS = frozenset({"threads", "words"})
 
 _profiler = torch.autograd.profiler
 # a profiler range of function scope: a user-scope range
@@ -271,15 +275,15 @@ def dropped() -> int:
 def totals(recorded=None) -> Dict[str, dict]:
     """Per span name, over the recorded spans (or `recorded`): host_s (the
     seconds they took), calls, and the sum of each of their counts (a
-    pinned count sums the page-locked copies), but for `threads` (the
-    native parse's and repack's ranges), the most any call ran."""
+    pinned count sums the page-locked copies), but of WIDTHS the most of
+    any call."""
     out: Dict[str, dict] = {}
     for s in spans() if recorded is None else recorded:
         t = out.setdefault(s.name, {"host_s": 0.0, "calls": 0})
         t["host_s"] += (s.end_ns - s.start_ns) / 1e9
         t["calls"] += 1
         for k, v in s.counts.items():
-            t[k] = max(t.get(k, 0), v) if k == "threads" else t.get(k, 0) + v
+            t[k] = max(t.get(k, 0), v) if k in WIDTHS else t.get(k, 0) + v
     return dict(sorted(out.items()))
 
 

@@ -176,14 +176,18 @@ def test_a_pushs_32_channel_blocks_run_on_one_thread(wak):
     short = payload[:offs[32]]
     n_lines = _args(cfg, True)[0]
 
+    parsed = _parse(tnative, short, cfg, True)
+    assert parsed["n_cblocks"] == 32
+    bits = int((parsed["ba"].astype(np.int64) @ n_lines).sum())
+
     def decode():
-        parsed = _parse(tnative, short, cfg, True)
-        assert parsed["n_cblocks"] == 32
+        _parse(tnative, short, cfg, True)
         tnative.repack_codes(parsed["mant"], parsed["ba"], n_lines, 128)
 
     counts = _traced(decode)
     assert counts["parse"] == {"bytes_in": len(short), "threads": 1}
-    assert counts["repack"] == {"rows": 32, "threads": 1}
+    assert counts["repack"] == {"rows": 32, "words": 128, "bits": bits,
+                                "threads": 1}
 
 
 def test_thread_count_follows_cpus_and_min_range(wak):

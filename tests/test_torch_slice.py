@@ -92,6 +92,25 @@ def test_roundtrip_many_equals_serial(pcms, port, jax_gold):
     assert eng.encode_many(pcms) == streams
 
 
+def test_encode_many_keeps_each_files_statistics(pcms):
+    """last_many: each file's extras, measurement pass and savings, what
+    last_extras, last_measure and last_savings read after encoding that
+    file alone; the last_* properties describe the last file."""
+    eng = Engine(device="cpu", rate_mode="reservoir", chunk_blocks=CHUNK)
+    eng.encode_many(pcms)
+    many = eng.last_many
+    assert len(many) == len(pcms)
+    assert eng.last_extras is many[-1].extras
+    one = Engine(device="cpu", rate_mode="reservoir", chunk_blocks=CHUNK)
+    for p, st in zip(pcms, many):
+        one.encode(p)
+        assert len(st.extras) == one._blocks(p)
+        np.testing.assert_array_equal(st.extras, one.last_extras)
+        for a, b in zip(st.measure, one.last_measure):
+            np.testing.assert_array_equal(a, b)
+        assert int(st.host("savings").sum()) == one.last_savings
+
+
 @pytest.mark.parametrize("knob,value", [("PACK_WORDS", 32),
                                         ("PACK_DENSE_WORDS", 8)])
 def test_overflow_fallbacks_same_stream(pcms, port, monkeypatch, knob,
