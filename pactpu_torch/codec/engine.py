@@ -711,6 +711,11 @@ def _download(t) -> np.ndarray:
         return h.numpy()
 
 
+def _copied(out: np.ndarray, src: np.ndarray) -> int:
+    """The bytes the host copied to make `out` from `src`: 0 for a view."""
+    return 0 if np.may_share_memory(out, src) else out.nbytes
+
+
 def _host_u32(t) -> np.ndarray:
     """Download an int32 tensor (or a list of them, joined) of u32 bit
     patterns as numpy uint32."""
@@ -1434,15 +1439,18 @@ class Engine:
             if sp is not None:
                 sp.counts["blocks"] = mb
             ola = self._fetch_ola(ola_dev, mb, c, n_bad, first_cblock=f0 * c)
-            # row t is the overlap-add of frames f0+t-1 and f0+t = audio
-            # block f0+t-1; row 0 lacks its true carry and is dropped (as
-            # the whole-file decoder's first-block skip); the tail row is
-            # the final flush, valid only at the end of the stream
-            with span("assemble", samples=s1 - s0):
-                rows = ola[1:mb + (1 if at_eof else 0)]
-                audio = rows.transpose(1, 0, 2).reshape(c, -1).T
+            # block t of ola is the overlap-add of frames f0+t and f0+t+1 =
+            # audio block f0+t (the row before, which lacks its true carry,
+            # was dropped on the device as the whole-file decoder's
+            # first-block skip); the tail block is the final flush, valid
+            # only at the end of the stream
+            with span("assemble", samples=s1 - s0) as sp:
+                audio = ola[:(mb if at_eof else mb - 1) * half]
                 base = f0 * half
-                return cfg.sample_rate, audio[s0 - base:s1 - base].copy()
+                pcm = audio[s0 - base:s1 - base]
+                if sp is not None:
+                    sp.counts["copied"] = _copied(pcm, ola)
+                return cfg.sample_rate, pcm
 
     def _decode_staging(self, data: bytes) -> dict:
         """Host half of a decode: read the header and stage the payload by
@@ -1647,8 +1655,9 @@ class Engine:
         """Queue every chunk's decode of a _decode_staging result (on the
         card with its chunks uploaded by _decode_upload, no host sync and
         no copy from the host happens here).  Returns (cfg, num_samples,
-        b, ola, n_bad): ola i16[b + 1 (+ flag rows), C, N] is the
-        overlap-added PCM; on the device-parse route the n_bad
+        b, ola, n_bad): ola i16[b (+ flag rows), N, C] is the overlap-added
+        PCM already in the caller's layout, its channels interleaved and
+        the MDCT-delay row dropped; on the device-parse route the n_bad
         per-channel-block corruption flags ride behind it as further
         rows, so that one download brings both."""
         cfg, b = staged["cfg"], staged["b"]
@@ -1664,42 +1673,51 @@ class Engine:
                     bad_chunks.append(bad)
             # the final-flush half (reference pacfile.py:171-178) is the
             # carry when every block was real, else the overlap-add of the
-            # first padded block; appending the carry row unifies both
+            # first padded block; appending the carry row unifies both.
+            # Rows 1..b are kept (row 0 is the MDCT delay), [B, N, C]
+            # views of them joined by the one copy below
             tail = q.float_to_pcm16(carry)[None]
-            ola = torch.cat(pcm_chunks + [tail])[:b + 1]
+            parts, at = [], 0
+            for p in pcm_chunks + [tail]:
+                lo, hi = max(1 - at, 0), min(b + 1 - at, p.shape[0])
+                if lo < hi:
+                    parts.append(p[lo:hi].permute(0, 2, 1))
+                at += p.shape[0]
             n_bad = 0
             if bad_chunks:
                 n_bad = b * c
                 flags = torch.cat(bad_chunks)[:n_bad].to(torch.int16)
                 flags = torch.nn.functional.pad(flags,
                                                 (0, -n_bad % (c * half)))
-                ola = torch.cat([ola, flags.reshape(-1, c, half)])
+                parts.append(flags.reshape(-1, half, c))
+            ola = torch.cat(parts)
         return cfg, staged["num_samples"], b, ola, n_bad
 
     @staticmethod
     def _fetch_ola(ola_dev, b: int, c: int, n_bad: int,
                    first_cblock: int = 0) -> np.ndarray:
-        """The single download of a decode: the overlap-added PCM rows
-        i16[b + 1, C, N], after raising on a channel-block the device
-        parser flagged (numbered from first_cblock)."""
+        """The single download of a decode: the overlap-added PCM
+        i16[b * N, C] (a view of the download), after raising on a
+        channel-block the device parser flagged (numbered from
+        first_cblock)."""
         ola = _download(ola_dev)
-        bad = ola[b + 1:].reshape(-1)[:n_bad]
+        bad = ola[b:].reshape(-1)[:n_bad]
         if bad.any():
             raise ValueError("corrupt payload at channel-block "
                              f"{first_cblock + int(np.argmax(bad))}")
-        return ola[:b + 1]
+        return ola[:b].reshape(-1, c)
 
     def _decode_finish(self, cfg, num_samples, b, ola_dev, n_bad):
-        """Blocking half of decode: the single download + reshaping (the
-        span "assemble", its samples a channel counted).  Row 0 (the MDCT
-        delay) is dropped, the flush row kept."""
-        c = cfg.n_channels
-        audio = self._fetch_ola(ola_dev, b, c, n_bad)[1:]
+        """Blocking half of decode: the single download, then its first
+        num_samples rows (the span "assemble", its samples a channel
+        counted and the bytes the host copied to lay them out)."""
+        audio = self._fetch_ola(ola_dev, b, cfg.n_channels, n_bad)
         with span("assemble") as sp:
-            pcm = audio.transpose(1, 0, 2).reshape(c, -1).T[:num_samples]
+            pcm = audio[:num_samples]
             if sp is not None:
-                sp.counts["samples"] = pcm.shape[0]
-            return cfg.sample_rate, pcm.copy()
+                sp.counts.update(samples=pcm.shape[0],
+                                 copied=_copied(pcm, audio))
+            return cfg.sample_rate, pcm
 
 
 ALLOC_MODES = ("water_fill", "closed_form", "uniform", "const_snr",

@@ -31,7 +31,8 @@ recorded while the profiler records), as JSON lines:
   replay:, capture: or direct: runs), and the sum of each of its counts
   over its calls (blocks, bytes, rows and real rows, chunks, the
   framing's bytes out and its wide and padded fallbacks, the decode's
-  dense overflows, samples; a pinned count sums the page-locked copies),
+  dense overflows, samples and the bytes the host copied to lay them
+  out (`copied`); a pinned count sums the page-locked copies),
   and the most host threads (ranges) one native parse or repack ran
   (`threads`: 1 means the serial loop);
 - "idle": the device's idle seconds by the innermost program span the
