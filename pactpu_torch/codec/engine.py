@@ -83,7 +83,8 @@ from numpy.lib.stride_tricks import sliding_window_view
 
 from pactpu_torch import native
 from pactpu_torch.codec import exact, programs
-from pactpu_torch.codec.header import read_header, write_header
+from pactpu_torch.codec.header import (read_header, scan_channel_blocks,
+                                       write_header)
 from pactpu_torch.ops import bitalloc, bitpack, huffman, kernels, psycho
 from pactpu_torch.ops import huffman_decode as hd
 from pactpu_torch.ops import huffman_walk as hw
@@ -97,8 +98,7 @@ DEFAULT_CHUNK_BLOCKS = 512
 
 # u32 words per channel-block row of the on-device packer at the default
 # rate (2.27 bits a sample); pack_widths scales it to a configuration's bit
-# budget.  A chunk whose rows need more is re-finalized with the next width
-# of _WIDE_WORDS.
+# budget.  A chunk whose rows need more is re-finalized at PACK_WORDS_MAX.
 PACK_WORDS = 256
 # Average u32 words per row budgeted for the dense payload download at the
 # default rate (the chunk total absorbs per-row spikes), scaled as
@@ -109,7 +109,6 @@ PACK_DENSE_WORDS = 112
 # 25 * (ba 4 + sf 4) + 25 lrms + 1024 signs + 1024 * (max escape 13 + max
 # mantissa 16) = 30,961 bits = 968 words.
 PACK_WORDS_MAX = 968
-_WIDE_WORDS = (384, PACK_WORDS_MAX)
 # mantissa word widths of the decoder's repacked rows
 _WORD_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512)
 _TAIL_BUCKETS = (16, 32, 64, 96, 128, 192, 256, 384, 512)
@@ -519,6 +518,32 @@ def _overlap_add(td: torch.Tensor, carry: torch.Tensor):
     first, second = td[..., :half], td[..., half:]
     prev_second = torch.cat([carry[None], second[:-1]], dim=0)
     return q.float_to_pcm16(prev_second + first), second[-1]
+
+
+def interleaved_rows(chunks: list, lo: int, hi: int) -> list:
+    """The decoded PCM's layout: rows [lo, hi) of successive chunks' i16[B,
+    C, N] blocks as [n, N, C] views (channels interleaved), one a chunk
+    that holds some, on its device.  Joined (torch.cat on one device, the
+    host past a download a device) they read as int16 [n N, C]."""
+    parts, at = [], 0
+    for p in chunks:
+        a, z = max(lo - at, 0), min(hi - at, p.shape[0])
+        if a < z:
+            parts.append(p[a:z].permute(0, 2, 1))
+        at += p.shape[0]
+    return parts
+
+
+def assemble_flat(dense, nbits: np.ndarray, width: int) -> bytes:
+    """The framed payload of rows packed back to back in dense (a host
+    array, or a device tensor of which only their words download) by
+    bitpack.compact_rows: ceil(nbits / 32) words a row, at most width."""
+    counts = np.minimum((nbits.astype(np.int64) + 31) // 32, width)
+    flat = dense[:int(counts.sum())]
+    if torch.is_tensor(flat):
+        flat = _host_u32(flat)
+    return native.assemble_rows_flat(
+        flat, (np.cumsum(counts) - counts).astype(np.int32), nbits)
 
 
 def payload_decode_chunk(cfg: CodecConfig, words, nbits, carry, dev: dict,
@@ -1142,7 +1167,7 @@ class Engine:
         payload (rows compacted by their word counts, nbits appended), then
         host framing (or, with device_pack=False, _host_pack).  Fallbacks:
         a chunk whose rows overflow the packer's width (pack_widths) is
-        re-finalized with a wider packer, launch by launch; a chunk whose
+        re-finalized at PACK_WORDS_MAX, launch by launch; a chunk whose
         dense total passes its cap downloads its padded rows instead.
         header (a stream's) goes in front of the payload.  Spans:
         "download" (the dense download), then "frame" (the framing; the
@@ -1165,9 +1190,9 @@ class Engine:
                 nbits = dn[pos + cap:pos + cap + rows].astype(np.int32)
                 counts = np.minimum((nbits.astype(np.int64) + 31) // 32, width)
                 flat = dn[pos:pos + cap] if int(counts.sum()) <= cap else None
-                chunks.append((flat, nbits, counts))
+                chunks.append((flat, nbits))
                 pos += cap + rows
-            padded = [k for k, (flat, _, _) in enumerate(chunks)
+            padded = [k for k, (flat, _) in enumerate(chunks)
                       if flat is None and sum(sizes[:k]) < b]
             if padded:
                 words = _host_u32([outs[k]["words"] for k in padded])
@@ -1179,24 +1204,22 @@ class Engine:
                 nb = min(sizes[k], b - done)
                 if nb <= 0:
                     break
-                flat, nbits, counts = chunks[k]
+                flat, nbits = chunks[k]
                 nb_rows = nbits[:c * nb]
                 need = -(-int(nb_rows.max(initial=0)) // 32)
                 if need > width:
-                    w = next((w for w in _WIDE_WORDS if w >= need), None)
-                    if w is None:
+                    if need > PACK_WORDS_MAX:
                         raise ValueError(
                             f"a payload row needs {need} words, past the "
                             f"{PACK_WORDS_MAX}-word packer")
-                    wout = finalize(cfg, a, ex, self.consts(), pack_words=w)
+                    wout = finalize(cfg, a, ex, self.consts(),
+                                    pack_words=PACK_WORDS_MAX)
                     parts.append(native.assemble_rows(
                         _host_u32(wout["words"][:c * nb]),
                         _download(wout["nbits"][:c * nb])))
                     wide += 1
                 elif flat is not None:
-                    offsets = (np.cumsum(counts) - counts).astype(np.int32)
-                    parts.append(native.assemble_rows_flat(
-                        flat, offsets[:c * nb], nb_rows))
+                    parts.append(assemble_flat(flat, nb_rows, width))
                 else:
                     parts.append(native.assemble_rows(padded[k][:c * nb],
                                                       nb_rows))
@@ -1412,28 +1435,18 @@ class Engine:
         if s1 <= s0:
             return cfg.sample_rate, np.zeros((0, c), np.int16)
 
-        payload = data[off:]
         i0, i1 = s0 // half, (s1 - 1) // half        # audio block range
-        spans = []                                    # per-frame byte spans
-        pos = 0
-        while pos < len(payload) and len(spans) <= i1 + 1:
-            start = pos
-            for _ in range(c):
-                if pos + 4 > len(payload):
-                    raise ValueError("truncated channel-block header")
-                pos += 4 + int.from_bytes(payload[pos:pos + 4], "little")
-                if pos > len(payload):
-                    raise ValueError("corrupt payload: channel-block "
-                                     "length exceeds the stream")
-            spans.append((start, pos))
-        if not spans:
-            raise ValueError("no channel-blocks found in payload")
-        last = len(spans) - 1
+        # the channel-blocks of the frames [0, i1 + 2)
+        starts, sizes, end = scan_channel_blocks(
+            data, off, limit=(i1 + 2) * c, strict=True)
+        if len(starts) % c:
+            raise ValueError("truncated channel-block header")
+        last = len(starts) // c - 1
         f0, f1 = min(i0, last), min(i1 + 1, last)
-        at_eof = f1 == last and pos >= len(payload)
-
+        at_eof = f1 == last and end >= len(data)
+        k1 = (f1 + 1) * c - 1              # the range's last channel-block
         mini = (write_header(cfg, total_samples)[0]
-                + payload[spans[f0][0]:spans[f1][1]])
+                + data[starts[f0 * c] - 4:starts[k1] + sizes[k1]])
         with span("decode") as sp:
             _, _, mb, ola_dev, n_bad = self._decode_dispatch(mini)
             if sp is not None:
@@ -1674,15 +1687,10 @@ class Engine:
             # the final-flush half (reference pacfile.py:171-178) is the
             # carry when every block was real, else the overlap-add of the
             # first padded block; appending the carry row unifies both.
-            # Rows 1..b are kept (row 0 is the MDCT delay), [B, N, C]
-            # views of them joined by the one copy below
-            tail = q.float_to_pcm16(carry)[None]
-            parts, at = [], 0
-            for p in pcm_chunks + [tail]:
-                lo, hi = max(1 - at, 0), min(b + 1 - at, p.shape[0])
-                if lo < hi:
-                    parts.append(p[lo:hi].permute(0, 2, 1))
-                at += p.shape[0]
+            # Rows 1..b are kept (row 0 is the MDCT delay), joined by the
+            # one copy below
+            parts = interleaved_rows(
+                pcm_chunks + [q.float_to_pcm16(carry)[None]], 1, b + 1)
             n_bad = 0
             if bad_chunks:
                 n_bad = b * c

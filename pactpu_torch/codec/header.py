@@ -1,15 +1,16 @@
-""".wak/.pac stream header (reference codec/pacfile.py), numpy/struct only.
+""".wak/.pac stream format (reference codec/pacfile.py), numpy/struct only.
 
-The same bytes as pactpu.compat.refcodec.write_header/read_header: the
-"PAC " tag, sample rate, channels, numSamples, nMDCTLines, scale and
+The header's bytes are pactpu.compat.refcodec.write_header/read_header's:
+the "PAC " tag, sample rate, channels, numSamples, nMDCTLines, scale and
 mantissa-size bit counts, then the band layout nLines[] so the stream is
-self-describing.
+self-describing.  The payload's framing (scan_channel_blocks): C
+channel-blocks a block, each a uint32-LE byte count and that many bytes.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Tuple
+from typing import Optional, Tuple
 
 from pactpu_torch.utils.config import CodecConfig, assign_mdct_lines
 
@@ -62,3 +63,28 @@ def read_header(data: bytes) -> Tuple[CodecConfig, int, int]:
                       n_mant_size_bits=n_mant_size_bits,
                       band_line_counts=override)
     return cfg, num_samples, off
+
+
+def scan_channel_blocks(buf, off: int = 0, limit: Optional[int] = None,
+                        strict: bool = False) -> Tuple[list, list, int]:
+    """The channel-blocks of a payload in buf from byte off (reference
+    codec/pacfile.py:170-183): (starts, sizes, end), the offsets and byte
+    counts of at most limit whole ones and the offset past the last.  It
+    stops at a prefix cut short or a count past the buffer (a stream still
+    arriving), where strict raises, as on a payload with none."""
+    n = len(buf)
+    starts, sizes, end = [], [], off
+    while end < n and (limit is None or len(starts) < limit):
+        size = struct.unpack_from("<L", buf, end)[0] if end + 4 <= n else None
+        if size is None or end + 4 + size > n:
+            if strict:
+                raise ValueError(
+                    "truncated channel-block header" if size is None else
+                    "corrupt payload: channel-block length exceeds the stream")
+            break
+        starts.append(end + 4)
+        sizes.append(size)
+        end += 4 + size
+    if strict and not starts:
+        raise ValueError("no channel-blocks found in payload")
+    return starts, sizes, end

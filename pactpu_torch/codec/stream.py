@@ -45,7 +45,6 @@ size.
 from __future__ import annotations
 
 import io
-import struct
 from dataclasses import replace
 from typing import Optional
 
@@ -55,10 +54,11 @@ import torch.nn.functional as F
 
 from pactpu_torch.codec import programs
 from pactpu_torch.codec.engine import (
-    DEFAULT_CHUNK_BLOCKS, Engine, _chunk_sizes, _default_batches, _offsets,
-    _overlap_add, _overlap_frames, _recut, analyze, resolve_device,
-    synthesize)
-from pactpu_torch.codec.header import read_header, write_header
+    DEFAULT_CHUNK_BLOCKS, Engine, _chunk_sizes, _default_batches, _download,
+    _offsets, _overlap_add, _overlap_frames, _recut, analyze,
+    interleaved_rows, resolve_device, synthesize)
+from pactpu_torch.codec.header import (read_header, scan_channel_blocks,
+                                       write_header)
 from pactpu_torch.ops import quantize as q
 from pactpu_torch.utils.config import CodecConfig
 from pactpu_torch.utils.metrics import span
@@ -368,8 +368,9 @@ class StreamingDecoder:
     `Engine.decode` of the whole stream, trimmed as it is to the header's
     numSamples.
 
-    A push decodes once chunk_blocks parsed blocks are waiting (a
-    multiple of them); `flush()` drains the rest.  The float overlap-add
+    A push decodes once chunk_blocks whole blocks are waiting (a
+    multiple of them); `flush()` drains the rest.  Each returns a view of
+    its one download.  The float overlap-add
     carry is taken after each push's last block, so the batch a block is
     synthesized in never rounds it.  The stream carries no window:
     `window` is the encode's.  device as Engine's."""
@@ -386,7 +387,6 @@ class StreamingDecoder:
         self._window = window
         self._chunk = int(chunk_blocks)
         self._buf = bytearray()        # undecoded stream bytes
-        self._pending: list = []       # parsed block payload spans
         self._cfg: Optional[CodecConfig] = None
         self._carry: Optional[torch.Tensor] = None   # overlapAndAdd (f32)
         self._blk_idx = 0              # global block counter (skip block 0)
@@ -420,9 +420,7 @@ class StreamingDecoder:
                 return np.zeros((0, 2), np.int16)    # header incomplete
             self._start(cfg, n_samp)
             del self._buf[:off]
-        self._split_blocks()
-        n_ready = len(self._pending) // self._chunk * self._chunk
-        return self._decode_pending(n_ready)
+        return self._decode_pending(flush=False)
 
     def flush(self) -> np.ndarray:
         """Drain the waiting blocks and return their PCM and the final
@@ -432,10 +430,7 @@ class StreamingDecoder:
         self._flushed = True
         if self._cfg is None:
             return np.zeros((0, 2), np.int16)
-        body = self._decode_pending(len(self._pending))
-        tail = q.float_to_pcm16(self._carry).cpu().numpy()
-        return np.concatenate([body, self._clip(np.ascontiguousarray(
-            tail.T))])
+        return self._decode_pending(flush=True)
 
     def _clip(self, pcm: np.ndarray) -> np.ndarray:
         """Trim emitted PCM to the header's numSamples total."""
@@ -443,42 +438,42 @@ class StreamingDecoder:
         self._emitted += pcm.shape[0]
         return pcm
 
-    def _split_blocks(self) -> None:
-        """Move complete blocks (n_channels uint32-length-prefixed channel
-        payloads, reference codec/pacfile.py:314-322) from the byte buffer
-        to the pending list."""
-        pos = 0
-        while (end := self._block_end(pos)) is not None:
-            self._pending.append(bytes(self._buf[pos:end]))
-            pos = end
-        del self._buf[:pos]
+    def _decode_pending(self, flush: bool) -> np.ndarray:
+        """Decode the whole blocks waiting in the byte buffer (C
+        channel-blocks each): a push's in multiples of chunk_blocks, a
+        flush's every one and then the carry's final half block.  Their
+        rows are laid out on the device as Engine.decode's
+        (interleaved_rows) and download once."""
+        c = self._cfg.n_channels
+        starts, sizes, _ = scan_channel_blocks(self._buf)
+        m = len(starts) // c
+        if not flush:
+            m -= m % self._chunk
+        # the stream's first row is the MDCT delay (reference
+        # codec/pacfile.py:484-487)
+        skip = int(self._blk_idx == 0 and m > 0)
+        outs = []
+        if m:
+            end = starts[m * c - 1] + sizes[m * c - 1]
+            outs = self._synthesize(bytes(self._buf[:end]), m)
+            del self._buf[:end]
+        if flush:
+            outs.append(q.float_to_pcm16(self._carry)[None])
+        rows = interleaved_rows(outs, skip, m + flush)
+        if not rows:
+            return np.zeros((0, c), np.int16)
+        return self._clip(_download(rows).reshape(-1, c))
 
-    def _block_end(self, pos: int) -> Optional[int]:
-        """The end of the block that starts at pos in the byte buffer, or
-        None while it is incomplete."""
-        end = pos
-        for _ch in range(self._cfg.n_channels):
-            if end + 4 > len(self._buf):
-                return None
-            end += 4 + struct.unpack_from("<L", self._buf, end)[0]
-        return end if end <= len(self._buf) else None
-
-    def _decode_pending(self, m: int) -> np.ndarray:
-        """Decode the first m pending blocks: native parse and code
-        repack on the host, then each batch piece (batch_pieces) through
-        K1 and the synthesis at the block's rows of a batch of the Engine's
-        size (stage "synthesize": on the card a program replay), and the
-        overlap-add from the carry."""
+    def _synthesize(self, payload: bytes, m: int) -> list:
+        """The m blocks of payload: native parse and code repack on the
+        host, then each batch piece (batch_pieces) through K1 and the
+        synthesis at the block's rows of a batch of the Engine's size
+        (stage "synthesize": on the card a program replay), and the
+        overlap-add from the carry.  Returns each piece's PCM i16[n, C, N]
+        on the device."""
         cfg, eng = self._cfg, self._eng
         c, half = cfg.n_channels, cfg.n_mdct_lines
-        if m == 0:
-            return np.zeros((0, c), np.int16)
-        parsed, words, _, n_words = eng._host_parse(
-            b"".join(self._pending[:m]), cfg)
-        del self._pending[:m]
-        if parsed["n_cblocks"] != c * m:
-            raise ValueError(f"corrupt payload: {parsed['n_cblocks']} "
-                             f"channel-blocks in {m} blocks of {c} channels")
+        parsed, words, _, n_words = eng._host_parse(payload, cfg)
         words = words.view(np.int32)
         up = eng._upload
         fields = dict(ba=up(parsed["ba"].astype(np.int8).reshape(m, c, -1)),
@@ -506,10 +501,8 @@ class StreamingDecoder:
                 (p["ba"], p["sf"], p["words"], p["overall"], p["lrms"]))
             pcm, self._carry = _overlap_add(td[lo:lo + hi - k], self._carry)
             outs.append(pcm)
-        ola = torch.cat(outs).cpu().numpy()[1 if k0 == 0 else 0:]
         self._blk_idx += m
-        return self._clip(np.ascontiguousarray(
-            ola.transpose(1, 0, 2).reshape(c, -1).T))
+        return outs
 
     # -- checkpoint/resume -------------------------------------------------
 
@@ -519,8 +512,7 @@ class StreamingDecoder:
         (block index, flushed, numSamples, emitted)."""
         header = write_header(self._cfg, 0)[0] if self._cfg else b""
         return _state_to_bytes(dict(
-            buf=np.frombuffer(b"".join(self._pending) + bytes(self._buf),
-                              np.uint8),
+            buf=np.frombuffer(bytes(self._buf), np.uint8),
             header=np.frombuffer(header, np.uint8),
             carry=(self._carry.cpu().numpy() if self._carry is not None
                    else np.zeros((0,), np.float32)),

@@ -32,6 +32,7 @@ import hashlib
 import numpy as np
 import torch
 
+from pactpu_torch.codec.header import scan_channel_blocks
 from pactpu_torch.ops import kernels
 
 
@@ -49,27 +50,12 @@ def frame_rows(payload: bytes, word_cap: int = 1 << 14):
     """Split a stream payload (past the header) into per-row word arrays.
 
     Each channel-block is a uint32-LE byte-count prefix + that many payload
-    bytes (reference codec/pacfile.py:170-183).  Returns (words u32[R, W]
-    MSB-first rows, nbits i32[R] payload bit counts) with W = the widest
-    row's words; raises ValueError on structural corruption (a prefix past
-    the stream).  Rows wider than word_cap return (None, None): the caller
-    takes the host parser."""
-    n = len(payload)
-    starts, sizes = [], []
-    off = 0
-    while off < n:
-        if off + 4 > n:
-            raise ValueError("truncated channel-block header")
-        nbytes = int.from_bytes(payload[off:off + 4], "little")
-        off += 4
-        if off + nbytes > n:
-            raise ValueError("corrupt payload: channel-block length "
-                             "exceeds the stream")
-        starts.append(off)
-        sizes.append(nbytes)
-        off += nbytes
-    if not starts:
-        raise ValueError("no channel-blocks found in payload")
+    bytes (reference codec/pacfile.py:170-183; header.scan_channel_blocks).
+    Returns (words u32[R, W] MSB-first rows, nbits i32[R] payload bit
+    counts) with W = the widest row's words; raises ValueError on
+    structural corruption (a prefix past the stream).  Rows wider than
+    word_cap return (None, None): the caller takes the host parser."""
+    starts, sizes, _ = scan_channel_blocks(payload, strict=True)
     r = len(starts)
     w = max(1, -(-max(sizes) // 4))
     if w > word_cap:

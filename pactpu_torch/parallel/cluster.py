@@ -176,26 +176,6 @@ def _local_blocks(mesh: shard.Mesh, xs: list) -> Tuple[np.ndarray, int]:
     return data, mesh.shard_index(0) * xs[0].shape[0]
 
 
-def _assemble_dense_local(dense: list, nbits_local: np.ndarray,
-                          rows_per_dev: int, width: int) -> bytes:
-    """Frame this process's payload from its shards' flat dense buffers,
-    fetching only each shard's occupied word prefix (the download is then
-    about the compressed bytes, not the padded cap).  nbits_local: the
-    process's real rows, which lead its shards."""
-    parts = []
-    for k, d in enumerate(dense):
-        nb = nbits_local[k * rows_per_dev:(k + 1) * rows_per_dev]
-        if nb.shape[0] == 0:
-            break
-        counts = np.minimum((nb.astype(np.int64) + 31) // 32, width)
-        offsets = np.concatenate([[0], np.cumsum(counts[:-1])])
-        need = int(counts.sum())
-        flat = E._host_u32(d[:need])
-        parts.append(native.assemble_rows_flat(
-            flat, offsets.astype(np.int32), nb))
-    return b"".join(parts)
-
-
 def encode_distributed(pcm: np.ndarray, cfg: Optional[CodecConfig] = None,
                        mesh: Optional[shard.Mesh] = None,
                        rate_mode: str = "reservoir") -> ShardResult:
@@ -270,8 +250,11 @@ def encode_distributed(pcm: np.ndarray, cfg: Optional[CodecConfig] = None,
         nbits, _ = _local_blocks(mesh, [o["nbits"] for o in out])
         nbits = nbits[:c * real]
         if dense_ok:
-            payload = _assemble_dense_local([o["dense"] for o in out], nbits,
-                                            rows_per_dev, pack_words)
+            # the process's real rows lead its shards
+            payload = b"".join(
+                E.assemble_flat(o["dense"], nbits[k:k + rows_per_dev],
+                                pack_words)
+                for o, k in zip(out, range(0, len(nbits), rows_per_dev)))
         else:
             words, _ = _local_blocks(mesh, [o["words"] for o in out])
             payload = native.assemble_rows(words[:c * real].view(np.uint32),
@@ -411,15 +394,16 @@ def _pcm_range(mesh: shard.Mesh, outs: list, b: int, half: int, c: int,
     output blocks.  Output block t is the overlap-add of frames t - 1 and
     t; the reference drops block 0 (the MDCT delay) and the flush half
     arrives as block b, so this range owns output blocks
-    [max(lo, 1), min(hi, b + 1))."""
-    local, lo = _local_blocks(mesh, [q.float_to_pcm16(o) for o in outs])
-    t0, t1 = max(lo, 1), min(lo + local.shape[0], b + 1)
-    if t1 <= t0:
+    [max(lo, 1), min(hi, b + 1)), laid out on each shard's device."""
+    lo = mesh.shard_index(0) * outs[0].shape[0]
+    t0 = max(lo, 1)
+    rows = E.interleaved_rows([q.float_to_pcm16(o) for o in outs], t0 - lo,
+                              b + 1 - lo)
+    if not rows:
         return np.zeros((0, c), np.int16), num_samples
-    keep = local[t0 - lo:t1 - lo]                    # [nb, C, half]
-    pcm = keep.transpose(1, 0, 2).reshape(c, -1).T
+    pcm = np.concatenate([E._download(r.contiguous()) for r in rows]).reshape(-1, c)
     start = (t0 - 1) * half
-    return pcm[:max(0, num_samples - start)].copy(), start
+    return pcm[:max(0, num_samples - start)], start
 
 
 def decode_distributed(data: bytes, mesh: Optional[shard.Mesh] = None

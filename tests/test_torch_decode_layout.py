@@ -2,11 +2,14 @@
 the device in the caller's layout (int16 [n, C], channels interleaved, the
 MDCT-delay row dropped), so the host only slices the download.  Every
 Engine decode path (decode, decode_many, roundtrip_many, decode_range; the
-host-parse and device-parse routes; .wak and .pac; stereo and mono) gives
-the samples of the former host assembly (the overlap-add [b + 1, C, N]
-transposed on the host) and of pactpu; the device parser's corruption
-flags, downloaded behind the PCM, still name their channel-block; the span
-"assemble" copies nothing."""
+host-parse and device-parse routes; .wak and .pac; stereo and mono), the
+StreamingDecoder and the distributed decode give the samples of the former
+host assembly (the overlap-add [b + 1, C, N] transposed on the host) and
+of pactpu; the device parser's corruption flags, downloaded behind the
+PCM, still name their channel-block; the span "assemble" copies nothing.
+The payload's channel-block framing has one walk (header.
+scan_channel_blocks), whose faults frame_rows and decode_range name as
+before and whose incomplete blocks a StreamingDecoder waits for."""
 
 import os
 
@@ -15,9 +18,11 @@ import pytest
 import torch
 
 from make_torch_port_fixture import fixture_pcm
-from pactpu_torch import Engine
-from pactpu_torch.codec.header import read_header
+from pactpu_torch import Engine, StreamingDecoder
+from pactpu_torch.codec.header import read_header, scan_channel_blocks
+from pactpu_torch.ops import huffman_decode as hd
 from pactpu_torch.ops import quantize as q
+from pactpu_torch.parallel import cluster, shard
 from pactpu_torch.utils import metrics as M
 from pactpu_torch.utils.config import CodecConfig
 from torch_threads import torch_threads  # noqa: F401 (autouse)
@@ -56,13 +61,12 @@ def streams(engines):
         for name, n in LENGTHS.items()}
 
 
-def host_assembly(engines, fmt: str, chans: int, data: bytes) -> np.ndarray:
+def host_assembly(eng: Engine, data: bytes) -> np.ndarray:
     """The former assembly of a decode: the chunks' overlap-added PCM and
     the flush row joined as [b + 1, C, N], row 0 dropped, and transposed
-    to [n, C] on the host.  The chunks run on the host-parse route: the
-    device-parse route's give the same samples (test_torch_device_decode)
-    and its plain walk takes tens of ms a block on the CPU."""
-    eng = engines[fmt, chans, "host"]
+    to [n, C] on the host.  eng: a host-parse Engine (the device-parse
+    route's chunks give the same samples, test_torch_device_decode, and
+    its plain walk takes tens of ms a block on the CPU)."""
     st = eng._decode_upload(eng._decode_staging(data))
     cfg, b = st["cfg"], st["b"]
     carry = torch.zeros((cfg.n_channels, cfg.n_mdct_lines),
@@ -74,6 +78,17 @@ def host_assembly(engines, fmt: str, chans: int, data: bytes) -> np.ndarray:
     ola = torch.cat(rows + [q.float_to_pcm16(carry)[None]])[:b + 1].numpy()
     audio = ola[1:].transpose(1, 0, 2).reshape(cfg.n_channels, -1).T
     return audio[:st["num_samples"]]
+
+
+def cblock_spans(data: bytes) -> list:
+    """The (first, end) byte offsets in the stream of each channel-block's
+    bytes, from a walk of its own over the byte-count prefixes."""
+    spans, pos = [], read_header(data)[2]
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "little")
+        spans.append((pos + 4, pos + 4 + n))
+        pos += 4 + n
+    return spans
 
 
 def check_layout(pcm: np.ndarray, n: int, chans: int) -> None:
@@ -96,8 +111,8 @@ def test_decode_equals_host_assembly(engines, streams, fmt, chans, route,
     check_layout(out, num_samples, chans)
     if length == "q6":
         assert num_samples == LENGTHS[length] + N
-    np.testing.assert_array_equal(out,
-                                  host_assembly(engines, fmt, chans, data))
+    np.testing.assert_array_equal(
+        out, host_assembly(engines[fmt, chans, "host"], data))
 
 
 FIXTURES = {                       # pactpu's streams and pactpu's decodes
@@ -124,7 +139,7 @@ def test_decode_matches_pactpu(engines, fixture, route):
     name, key, fmt, chans = FIXTURES[fixture]
     with np.load(os.path.join(DATA, name)) as z:
         data, gold = z[key + "stream"].tobytes(), z[key + "decoded"]
-    whole = host_assembly(engines, fmt, chans, data)
+    whole = host_assembly(engines[fmt, chans, "host"], data)
     eng = engines[fmt, chans, route]
     if route == "host":
         _, out = eng.decode(data)
@@ -150,8 +165,8 @@ def test_batch_paths_equal_host_assembly(engines, streams, api, route):
     for (fs, out), data in zip(outs, datas):
         assert fs == 44100
         check_layout(out, read_header(data)[1], 2)
-        np.testing.assert_array_equal(out,
-                                      host_assembly(engines, "wak", 2, data))
+        np.testing.assert_array_equal(
+            out, host_assembly(engines["wak", 2, "host"], data))
 
 
 WINDOWS = {                                  # (start, samples)
@@ -167,7 +182,7 @@ WINDOWS = {                                  # (start, samples)
 def test_decode_range_equals_host_assembly(engines, streams, chans, route,
                                            window):
     eng, data = engines["wak", chans, route], streams["wak", chans, "q6"]
-    full = host_assembly(engines, "wak", chans, data)
+    full = host_assembly(engines["wak", chans, "host"], data)
     start, n = WINDOWS[window]
     if window == "end_of_stream":
         start += len(full)
@@ -186,12 +201,7 @@ def test_corrupt_channel_block_raises_with_its_number(engines, streams, api,
     by the device and named, counted from the stream's first, by the
     flags that ride behind the interleaved PCM."""
     data = streams["wak", 2, "minus_1"]
-    off = read_header(data)[2]
-    spans, pos = [], off
-    while pos < len(data):
-        n = int.from_bytes(data[pos:pos + 4], "little")
-        spans.append((pos + 4, pos + 4 + n))
-        pos += 4 + n
+    spans = cblock_spans(data)
     k = cblock % len(spans)
     bad = bytearray(data)
     bad[spans[k][0]:spans[k][1]] = b"\xff" * (spans[k][1] - spans[k][0])
@@ -225,3 +235,136 @@ def test_assemble_copies_nothing(engines, streams, api):
     assert len(spans) == len(outs)
     assert [s.counts["copied"] for s in spans] == [0] * len(outs)
     assert [s.counts["samples"] for s in spans] == [len(x) for x in outs]
+
+
+def stream_decode(data: bytes, fmt: str, chunk_blocks: int, step: int):
+    """A StreamingDecoder over `step`-byte pushes and its flush: each
+    call's output, and the "download" spans each recorded."""
+    dec = StreamingDecoder(fmt=fmt, chunk_blocks=chunk_blocks, device="cpu")
+    calls = [lambda i=i: dec.push(data[i:i + step])
+             for i in range(0, len(data), step)] + [dec.flush]
+    outs, downloads = [], []
+    for call in calls:
+        M.reset()
+        with M.tracing():
+            outs.append(call())
+        downloads.append(sum(x.name == "download" for x in M.spans()))
+    M.reset()
+    return outs, downloads
+
+
+@pytest.mark.parametrize("length", list(LENGTHS))
+@pytest.mark.parametrize("chunk_blocks", [1, 16])
+@pytest.mark.parametrize("chans", [2, 1])
+@pytest.mark.parametrize("fmt", ["wak", "pac"])
+def test_streaming_decoder_equals_host_assembly(streams, fmt, chans,
+                                                chunk_blocks, length):
+    """StreamingDecoder's pushes and flush, joined, give the former host
+    assembly's samples and Engine.decode's (the default chunking's, whose
+    synthesis batches the stream's are); each call that returns samples
+    downloads once and returns a C-contiguous view of that download."""
+    data = streams[fmt, chans, length]
+    eng = Engine(device="cpu", cfg=CodecConfig(n_channels=chans), fmt=fmt,
+                 decode_parse="host")
+    outs, downloads = stream_decode(data, fmt, chunk_blocks, step=777)
+    for out, n in zip(outs, downloads):
+        if out.size:
+            assert n == 1 and out.dtype == np.int16
+            assert out.flags.c_contiguous and not out.flags.owndata
+    got = np.concatenate([o for o in outs if o.size])
+    check_layout(got, read_header(data)[1], chans)
+    np.testing.assert_array_equal(got, host_assembly(eng, data))
+    np.testing.assert_array_equal(got, eng.decode(data)[1])
+
+
+def pcm_range_host(mesh, outs, b, half, c, num_samples):
+    """The former cluster._pcm_range: the shards' overlap-added blocks
+    downloaded, joined and transposed on the host."""
+    local = np.concatenate([q.float_to_pcm16(o).numpy() for o in outs])
+    lo = mesh.shard_index(0) * outs[0].shape[0]
+    t0, t1 = max(lo, 1), min(lo + local.shape[0], b + 1)
+    pcm = local[t0 - lo:t1 - lo].transpose(1, 0, 2).reshape(c, -1).T
+    start = (t0 - 1) * half
+    return pcm[:max(0, num_samples - start)], start
+
+
+@pytest.mark.parametrize("length", ["q6", "minus_1"])
+@pytest.mark.parametrize("chans", [2, 1])
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_decode_distributed_equals_host_assembly(engines, streams,
+                                                 monkeypatch, n_shards,
+                                                 route, chans, length):
+    """decode_distributed on 1 and 4 CPU shards, by the device parse and
+    by the host route (_decode_distributed_dense), gives the former host
+    assembly's samples from the same shard outputs, and assemble_pcm of
+    its range is Engine.decode's within 1 LSB."""
+    data = streams["wak", chans, length]
+    mesh = shard.make_mesh(["cpu"] * n_shards)
+    former = []
+    real = cluster._pcm_range
+
+    def both(*args):
+        former.append(pcm_range_host(*args))
+        return real(*args)
+
+    monkeypatch.setattr(cluster, "_pcm_range", both)
+    if route == "device":
+        res = cluster.decode_distributed(data, mesh=mesh)
+    else:
+        cfg, _, off = read_header(data)
+        res = cluster._decode_distributed_dense(data, off, cfg, mesh)
+    (pcm, start), = former
+    assert res.sample_start == start == 0
+    assert res.pcm.dtype == np.int16 and res.pcm.flags.c_contiguous
+    np.testing.assert_array_equal(res.pcm, pcm)
+    got = cluster.assemble_pcm([(res.sample_start, res.pcm)],
+                               res.num_samples)
+    _, ref = engines["wak", chans, "host"].decode(data)
+    assert got.shape == ref.shape
+    assert int(np.abs(got.astype(np.int32) - ref).max()) <= 1
+
+
+SCAN_FAULTS = {                # a payload's fault -> the parent's message
+    "prefix_cut_short": "truncated channel-block header",
+    "length_past_stream": "corrupt payload: channel-block length exceeds "
+                          "the stream",
+    "empty_payload": "no channel-blocks found in payload",
+}
+
+
+@pytest.mark.parametrize("case", [*SCAN_FAULTS, "one_byte_at_a_time"])
+def test_channel_block_scan(engines, streams, case):
+    """The one walk of the byte-count prefixes: on a payload cut inside a
+    prefix, cut inside a channel-block's bytes, or empty, frame_rows and
+    decode_range raise the parent's messages and the scan alone stops at
+    the last whole channel-block; a StreamingDecoder fed one byte at a
+    time returns no samples until the block after the first completes
+    (the first's row is the MDCT delay), then every block's as it
+    completes: Engine.decode's samples."""
+    data = streams["wak", 2, "minus_1"]
+    off = read_header(data)[2]
+    spans = cblock_spans(data)
+    if case == "one_byte_at_a_time":
+        outs, _ = stream_decode(data, "wak", 1, step=1)
+        # the push of byte i returns samples iff it completes a block
+        # other than the first
+        done = [end - 1 for _, end in spans[3::2]]
+        assert [i for i, o in enumerate(outs[:-1]) if o.size] == done
+        got = np.concatenate([o for o in outs if o.size])
+        _, ref = Engine(device="cpu").decode(data)
+        np.testing.assert_array_equal(got, ref)
+        return
+    cut = {"prefix_cut_short": spans[-1][0] - 2,
+           "length_past_stream": spans[-1][1] - 1,
+           "empty_payload": off}[case]
+    bad = data[:cut]
+    starts, sizes, end = scan_channel_blocks(bad, off)
+    assert starts == [a for a, _ in spans[:len(starts)]]
+    assert sizes == [z - a for a, z in spans[:len(starts)]]
+    assert len(starts) == (0 if case == "empty_payload" else len(spans) - 1)
+    assert end == (spans[-2][1] if starts else off)
+    with pytest.raises(ValueError, match=f"^{SCAN_FAULTS[case]}$"):
+        hd.frame_rows(bad[off:])
+    with pytest.raises(ValueError, match=f"^{SCAN_FAULTS[case]}$"):
+        engines["wak", 2, "host"].decode_range(bad, 0, 10 * N)
