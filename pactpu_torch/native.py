@@ -1,30 +1,43 @@
 """ctypes binding to the repository's native bitstream runtime, the host
 half of the stream format: csrc/wakbits.cc (which the JAX package builds
 too) and the port's pactpu_torch/csrc/wakbits_ranges.cc, which includes
-it and adds its parse and repack over ranges of channel-blocks on several
-host threads.
+it and adds a word-wide parse and repack, run over ranges of
+channel-blocks on several host threads.
 
 The library is compiled at first use with ``g++ -O3 -shared -fPIC
 -pthread`` from wakbits_ranges.cc in place into ``pactpu_torch/_build/``
 (git-ignored), and rebuilt when either source is newer than the library.
 There is no pure-Python fallback: a failed build raises.
 
-Bound here: ``unpack_file`` (the Huffman bit-walk parser of the decoder),
+Bound here: ``unpack_file`` (the Huffman parser of the decoder),
 ``pack_file`` (the serializer, which the baseline .pac encoder uses),
 ``repack_codes`` (fixed-width mantissa words for the device extractor),
 ``assemble_rows`` / ``assemble_rows_flat`` (framing of device-packed payload
 rows) and ``init_tables`` (the decode trees of the shipped or a trained
-table set, uploaded into the library's process-wide table slot).
+table set, and its two-level LUT, uploaded into the library's
+process-wide table slot).
+
+The parse reads a channel-block through a 64-bit bit buffer and decodes
+each Huffman code by a lookup in the table set's two-level LUT
+(ops.huffman_walk.build_walk_lut, the one the device walk K5 reads: 11
+root bits, a second level for longer codes); the repack moves each
+line's code through a 64-bit accumulator.  Where build_walk_lut returns
+None for the set, or the library finds an entry that its trees decode
+otherwise, the .wak parse runs wakbits.cc's serial tree walk instead;
+so does a parse or repack of widths the word loops do not take
+(wakbits_ranges.cc names them).  Either way the outputs are the serial
+loop's bit for bit, and an error names the first bad channel-block as
+the serial loop does.
 
 ``unpack_file`` and ``repack_codes`` cut their channel-blocks into
-contiguous ranges (of whole blocks, for the parse) and run wakbits.cc's
-serial loop on each at once, one host thread a range; the outputs are
-the serial loop's bit for bit, and an error names the first bad
-channel-block as the serial loop does.  The number of ranges is the
+contiguous ranges (of whole blocks, for the parse) and run the loop on
+each at once, one host thread a range.  The number of ranges is the
 smaller of the CPUs the process may use and the channel-blocks over
-MIN_RANGE, so a short input (a stream push's 32 channel-blocks) runs the
-serial loop on the calling thread.  The spans "parse" and "repack" count
-the ranges that ran as ``threads``.
+MIN_RANGE, so a short input (a stream push's 32 channel-blocks) runs on
+the calling thread.  The spans "parse" and "repack" count the ranges
+that ran as ``threads``; "parse" also counts ``lut`` (1 when the word
+loop ran, 0 when the serial walk did), ``deep`` (codes that took the
+LUT's second level) and ``escapes``.
 """
 
 from __future__ import annotations
@@ -56,7 +69,8 @@ MIN_RANGE = 256
 _lock = threading.Lock()
 _lib = None
 # the table set the library's decode trees hold: (the tuple last uploaded,
-# its fingerprint), or None before the first upload
+# its fingerprint, 1 if the library took its LUT else 0), or None before
+# the first upload
 _tables_ready = None
 
 
@@ -87,9 +101,11 @@ def _load():
         u8p = ctypes.POINTER(ctypes.c_uint8)
         u32p = ctypes.POINTER(ctypes.c_uint32)
         i32p = ctypes.POINTER(ctypes.c_int32)
-        lib.wak_init_tables.restype = ctypes.c_int
-        lib.wak_init_tables.argtypes = [u8p, u32p, u8p, u32p,
-                                        ctypes.c_int, ctypes.c_int]
+        lib.wak_init_tables_lut.restype = ctypes.c_int
+        lib.wak_init_tables_lut.argtypes = [u8p, u32p, u8p, u32p,
+                                            ctypes.c_int, ctypes.c_int,
+                                            u32p, u32p, u32p,
+                                            ctypes.c_int64]
         lib.wak_assemble_rows.restype = ctypes.c_int64
         lib.wak_assemble_rows.argtypes = [u32p, ctypes.c_int, ctypes.c_int,
                                           i32p, u8p, ctypes.c_int64]
@@ -111,7 +127,8 @@ def _load():
         lib.wak_unpack_file_ranges.argtypes = (
             [u8p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, i32p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int] + [i32p] * 6 + [ctypes.c_int])
+             ctypes.c_int, ctypes.c_int] + [i32p] * 6
+            + [ctypes.c_int, ctypes.POINTER(ctypes.c_int64)])
         _lib = lib
     return _lib
 
@@ -124,24 +141,28 @@ def _i32(a) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.int32)
 
 
-def init_tables(tables=None) -> None:
-    """Upload Huffman decode trees into the library's process-wide slot:
+def init_tables(tables=None) -> int:
+    """Upload Huffman decode trees, and their two-level LUT (ops.
+    huffman_walk.build_walk_lut), into the library's process-wide slot:
     `tables` (lengths [T, S], codes [T, S], escape_lengths [T],
     escape_codes [T]), e.g. a set trained by pactpu_torch.ops.
     huffman_train, or None for the shipped set (pactpu_torch.ops.huffman.
     load_tables).  Uploads only when the set changes: the same tuple is
     recognised at once, another by a digest of its contents (as
     pactpu.native.init_tables, whose key is a sum of each array), so
-    engines with different table sets interleave correctly."""
+    engines with different table sets interleave correctly.  Returns 1
+    if the parse reads the set's LUT, 0 if it walks the trees."""
     global _tables_ready
     from pactpu_torch.ops.huffman import load_tables
     from pactpu_torch.ops.huffman_decode import _tables_fingerprint
+    from pactpu_torch.ops.huffman_walk import K1, build_walk_lut
     lib = _load()
+    given = tables
     if tables is None:
         tables = load_tables()
     with _lock:
         if _tables_ready is not None and _tables_ready[0] is tables:
-            return
+            return _tables_ready[2]
         key = _tables_fingerprint(tables)
         if _tables_ready is None or _tables_ready[1] != key:
             lengths, codes, esc_len, esc_codes = tables
@@ -149,11 +170,29 @@ def init_tables(tables=None) -> None:
             co = np.ascontiguousarray(codes, np.uint32)
             el = np.ascontiguousarray(esc_len, np.uint8)
             ec = np.ascontiguousarray(esc_codes, np.uint32)
-            lib.wak_init_tables(
+            lut = build_walk_lut(given)
+            if lut is None:
+                l1 = l1b = l2 = ctypes.POINTER(ctypes.c_uint32)()
+                pool = 0
+            else:
+                lut = {k: np.ascontiguousarray(v, np.uint32)
+                       for k, v in lut.items()}
+                if (lut["l1"].shape != (le.shape[0], 1 << K1)
+                        or lut["l1b"].shape != (le.shape[0], 128)
+                        or lut["l2"].shape[0] != le.shape[0]):
+                    raise ValueError("init_tables: the LUT's shapes do not "
+                                     "match the table set")
+                l1, l1b, l2 = (_ptr(lut[k], ctypes.c_uint32)
+                               for k in ("l1", "l1b", "l2"))
+                pool = lut["l2"].shape[1]
+            on = lib.wak_init_tables_lut(
                 _ptr(le, ctypes.c_uint8), _ptr(co, ctypes.c_uint32),
                 _ptr(el, ctypes.c_uint8), _ptr(ec, ctypes.c_uint32),
-                le.shape[0], le.shape[1])
-        _tables_ready = (tables, key)
+                le.shape[0], le.shape[1], l1, l1b, l2, pool)
+        else:
+            on = _tables_ready[2]
+        _tables_ready = (tables, key, on)
+        return on
 
 
 def pack_file(n_lines: np.ndarray, n_scale_bits: int, n_mant_size_bits: int,
@@ -289,7 +328,8 @@ def unpack_file(payload: bytes, n_lines: np.ndarray, n_scale_bits: int,
 
     Returns dict of arrays keyed overall/table_id/ba/sf/mant [R, ...] and
     lrms [R//n_channels, bands], plus the parsed channel-block count R.
-    The span "parse" counts the payload's bytes and the threads.
+    The span "parse" counts the payload's bytes, the threads, and lut,
+    deep and escapes (the module's docstring).
     """
     with span("parse", bytes_in=len(payload)) as sp:
         return _unpack_file(payload, n_lines, n_scale_bits,
@@ -320,13 +360,18 @@ def _unpack_file(payload, n_lines, n_scale_bits, n_mant_size_bits,
     sf = np.zeros((r, n_bands), np.int32)
     mant = np.zeros((r, total_lines), np.int32)
     lrms = np.zeros((-(-r // c), n_bands), np.int32)
+    counts = np.zeros(3, np.int64)
     rc = lib.wak_unpack_file_ranges(
         dp, len(data), r, n_bands, _ptr(nl, ctypes.c_int32), total_lines,
         n_scale_bits, n_mant_size_bits, n_table_id_bits,
         1 if read_lrms else 0, c,
         _ptr(overall, ctypes.c_int32), _ptr(table_id, ctypes.c_int32),
         _ptr(ba, ctypes.c_int32), _ptr(sf, ctypes.c_int32),
-        _ptr(mant, ctypes.c_int32), _ptr(lrms, ctypes.c_int32), n)
+        _ptr(mant, ctypes.c_int32), _ptr(lrms, ctypes.c_int32), n,
+        _ptr(counts, ctypes.c_int64))
+    if sp is not None:
+        sp.counts.update(lut=int(counts[0]), deep=int(counts[1]),
+                         escapes=int(counts[2]))
     if rc < 0:
         raise ValueError(f"corrupt payload at channel-block {-rc - 1}")
     return dict(overall=overall, table_id=table_id, ba=ba, sf=sf,

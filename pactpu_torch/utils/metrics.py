@@ -161,10 +161,11 @@ def collect_encode_stats(out: Dict[str, np.ndarray], n_blocks: int,
 PREFIX = "pactpu_torch:"
 # spans kept in memory; later ones are counted as dropped
 MAX_SPANS = 1 << 17
-# counts that give a call's width, not an amount of work (the native
-# parse's and repack's threads; the final pass's and the repack's words a
-# row): totals() keeps the most of any call, and sums every other count
-WIDTHS = frozenset({"threads", "words"})
+# counts that give a call's width or route, not an amount of work (the
+# native parse's and repack's threads; the final pass's and the repack's
+# words a row; the parse's lut, 1 when it ran the word loop): totals()
+# keeps the most of any call, and sums every other count
+WIDTHS = frozenset({"threads", "words", "lut"})
 
 _profiler = torch.autograd.profiler
 # a profiler range of function scope: a user-scope range

@@ -20,6 +20,7 @@ from pactpu import native as jnative
 from pactpu_torch import native as tnative
 from pactpu_torch.codec.header import read_header
 from pactpu_torch.utils import metrics as M
+from test_torch_native_lut import count_codes
 from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "data")
@@ -156,7 +157,7 @@ def test_byte_count_past_the_end_in_a_later_range(wak):
 
     serial = run(jnative._load().wak_unpack_file)
     assert serial == -(i + 1)
-    assert run(tnative._load().wak_unpack_file_ranges, 8) == serial
+    assert run(tnative._load().wak_unpack_file_ranges, 8, None) == serial
 
 
 def _traced(fn):
@@ -169,8 +170,9 @@ def _traced(fn):
 
 
 def test_a_pushs_32_channel_blocks_run_on_one_thread(wak):
-    """A stream push's payload (16 stereo blocks) takes the serial loop:
-    both spans record threads 1."""
+    """A stream push's payload (16 stereo blocks) runs on the calling
+    thread: both spans record threads 1; the parse ran the word loop (lut
+    1) and counts the deep codes and escapes that a plain walk counts."""
     cfg, payload = wak
     offs = _offsets(payload)
     short = payload[:offs[32]]
@@ -185,7 +187,9 @@ def test_a_pushs_32_channel_blocks_run_on_one_thread(wak):
         tnative.repack_codes(parsed["mant"], parsed["ba"], n_lines, 128)
 
     counts = _traced(decode)
-    assert counts["parse"] == {"bytes_in": len(short), "threads": 1}
+    deep, escapes = count_codes(short, cfg)
+    assert counts["parse"] == {"bytes_in": len(short), "threads": 1,
+                               "lut": 1, "deep": deep, "escapes": escapes}
     assert counts["repack"] == {"rows": 32, "words": 128, "bits": bits,
                                 "threads": 1}
 

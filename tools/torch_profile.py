@@ -34,7 +34,10 @@ recorded while the profiler records), as JSON lines:
   dense overflows, samples and the bytes the host copied to lay them
   out (`copied`); a pinned count sums the page-locked copies),
   and the most host threads (ranges) one native parse or repack ran
-  (`threads`: 1 means the serial loop);
+  (`threads`: 1 means the calling thread alone), and of the parse
+  whether it ran the word-wide loop (`lut`, 1, or 0 where it walked the
+  trees), its codes that took the LUT's second level (`deep`) and its
+  escapes;
 - "idle": the device's idle seconds by the innermost program span the
   host was in (a gap split where the host changed span), and "outside"
   for the idle time outside every span;
