@@ -153,6 +153,17 @@ def _decode_layouts() -> tuple:
             (2 * PACK_DENSE_WORDS, 512))
 
 
+def decode_layout(n_words: int, fits=None):
+    """The first of _decode_layouts whose width holds rows of n_words
+    words and whose dense budget a row `fits` accepts (every budget when
+    fits is None), or None past the last.  Engine.decode takes it with its
+    chunks' budget; StreamingDecoder, which uploads padded rows, with
+    none, so that its program is keyed as the Engine's."""
+    return next(((dense, width) for dense, width in _decode_layouts()
+                 if width >= n_words and (fits is None or fits(dense))),
+                None)
+
+
 def _np_dtype(precision: str):
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r} (f32 or f64)")
@@ -1564,10 +1575,8 @@ class Engine:
             counts = np.minimum((rowbits + 31) // 32, n_words)
             totals = [int(counts[offs[k] * c:offs[k + 1] * c].sum())
                       for k in range(len(sizes))]
-            layout = next(((dense, width) for dense, width in _decode_layouts()
-                           if width >= n_words and all(
-                               t <= sz * c * dense
-                               for t, sz in zip(totals, sizes))), None)
+            layout = decode_layout(n_words, lambda dense: all(
+                t <= sz * c * dense for t, sz in zip(totals, sizes)))
             if layout is not None:
                 col = np.arange(n_words)[None, :]
                 words = []
@@ -1607,11 +1616,14 @@ class Engine:
              words[k].view(np.int32), overall[offs[k]:offs[k + 1]],
              lrms[offs[k]:offs[k + 1]]) for k in range(len(sizes))])
 
-    def _host_parse(self, payload: bytes, cfg: CodecConfig):
+    def _host_parse(self, payload: bytes, cfg: CodecConfig,
+                    layout_width: bool = False):
         """The native parse of a payload (the engine's fmt and tables) and
         its mantissa codes repacked into fixed-width rows.  Returns
         (parsed, rows u32[CB, W], bits of each row i64[CB], W: the
-        smallest of _WORD_BUCKETS that holds the widest row)."""
+        smallest of _WORD_BUCKETS that holds the widest row, or with
+        layout_width the width of the first decode layout that holds it,
+        decode_layout's)."""
         c = cfg.n_channels
         huff = self.fmt == "wak"
         n_lines = np.asarray(cfg.band_layout.n_lines, np.int32)
@@ -1626,6 +1638,8 @@ class Engine:
         max_bits = int(rowbits.max(initial=0))
         n_words = next((w for w in _WORD_BUCKETS if w * 32 >= max_bits),
                        -(-max_bits // 32))
+        if layout_width:
+            n_words = (decode_layout(n_words) or (0, n_words))[1]
         rows = native.repack_codes(parsed["mant"], parsed["ba"], n_lines,
                                    n_words)
         return parsed, rows, rowbits, n_words

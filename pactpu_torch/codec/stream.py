@@ -54,8 +54,8 @@ import torch.nn.functional as F
 
 from pactpu_torch.codec import programs
 from pactpu_torch.codec.engine import (
-    DEFAULT_CHUNK_BLOCKS, Engine, _chunk_sizes, _default_batches, _download,
-    _offsets, _overlap_add, _overlap_frames, _recut, analyze,
+    DEFAULT_CHUNK_BLOCKS, Engine, _chunk_sizes, _default_batches,
+    _download, _offsets, _overlap_add, _overlap_frames, _recut, analyze,
     interleaved_rows, resolve_device, synthesize)
 from pactpu_torch.codec.header import (read_header, scan_channel_blocks,
                                        write_header)
@@ -408,29 +408,36 @@ class StreamingDecoder:
                                   dtype=torch.float32, device=self._device)
 
     def push(self, data: bytes) -> np.ndarray:
-        # after a flush the carry has been emitted as PCM: decoding further
-        # blocks would silently part from Engine.decode, so refuse
-        if self._flushed:
-            raise RuntimeError("push after flush")
-        self._buf.extend(data)
-        if self._cfg is None:
-            try:
-                cfg, n_samp, off = read_header(bytes(self._buf))
-            except ValueError:
-                return np.zeros((0, 2), np.int16)    # header incomplete
-            self._start(cfg, n_samp)
-            del self._buf[:off]
-        return self._decode_pending(flush=False)
+        """Feed stream bytes; returns the PCM of every block that became
+        decodable.  The root span "decode_push" counts the blocks it
+        decoded."""
+        with span("decode_push", blocks=0) as sp:
+            # after a flush the carry has been emitted as PCM: decoding
+            # further blocks would silently part from Engine.decode, so
+            # refuse
+            if self._flushed:
+                raise RuntimeError("push after flush")
+            self._buf.extend(data)
+            if self._cfg is None:
+                try:
+                    cfg, n_samp, off = read_header(bytes(self._buf))
+                except ValueError:
+                    return np.zeros((0, 2), np.int16)  # header incomplete
+                self._start(cfg, n_samp)
+                del self._buf[:off]
+            return self._decode_pending(False, sp)
 
     def flush(self) -> np.ndarray:
         """Drain the waiting blocks and return their PCM and the final
-        overlap-add half block (reference codec/pacfile.py:171-178)."""
+        overlap-add half block (reference codec/pacfile.py:171-178), a
+        root span "decode_push"."""
         if self._flushed:
             raise RuntimeError("flush called twice")
         self._flushed = True
-        if self._cfg is None:
-            return np.zeros((0, 2), np.int16)
-        return self._decode_pending(flush=True)
+        with span("decode_push", blocks=0) as sp:
+            if self._cfg is None:
+                return np.zeros((0, 2), np.int16)
+            return self._decode_pending(True, sp)
 
     def _clip(self, pcm: np.ndarray) -> np.ndarray:
         """Trim emitted PCM to the header's numSamples total."""
@@ -438,17 +445,20 @@ class StreamingDecoder:
         self._emitted += pcm.shape[0]
         return pcm
 
-    def _decode_pending(self, flush: bool) -> np.ndarray:
+    def _decode_pending(self, flush: bool, sp=None) -> np.ndarray:
         """Decode the whole blocks waiting in the byte buffer (C
         channel-blocks each): a push's in multiples of chunk_blocks, a
         flush's every one and then the carry's final half block.  Their
         rows are laid out on the device as Engine.decode's
-        (interleaved_rows) and download once."""
+        (interleaved_rows) and download once.  sp: the call's root span
+        (None when not recording), which takes the blocks' count."""
         c = self._cfg.n_channels
         starts, sizes, _ = scan_channel_blocks(self._buf)
         m = len(starts) // c
         if not flush:
             m -= m % self._chunk
+        if sp is not None:
+            sp.counts["blocks"] = m
         # the stream's first row is the MDCT delay (reference
         # codec/pacfile.py:484-487)
         skip = int(self._blk_idx == 0 and m > 0)
@@ -473,12 +483,16 @@ class StreamingDecoder:
         on the device."""
         cfg, eng = self._cfg, self._eng
         c, half = cfg.n_channels, cfg.n_mdct_lines
-        parsed, words, _, n_words = eng._host_parse(payload, cfg)
-        words = words.view(np.int32)
+        # rows as wide as the first of the Engine's decode layouts that
+        # holds them (engine.decode_layout), not as the push's widest row:
+        # the program is keyed by the width, and one a batch size serves
+        # every push (zero words past a row's bits decode to nothing)
+        parsed, words, _, width = eng._host_parse(payload, cfg,
+                                                  layout_width=True)
         up = eng._upload
         fields = dict(ba=up(parsed["ba"].astype(np.int8).reshape(m, c, -1)),
                       sf=up(parsed["sf"].astype(np.int8).reshape(m, c, -1)),
-                      words=up(words.reshape(m, c, n_words)),
+                      words=up(words.view(np.int32).reshape(m, c, width)),
                       overall=up(parsed["overall"].astype(np.int8).reshape(
                           m, c)),
                       lrms=up(parsed["lrms"] != 0))
@@ -486,7 +500,7 @@ class StreamingDecoder:
         programmed = programs.decode_programs(eng)
 
         def stage(ba, sf, words, overall, lrms):
-            return synthesize(cfg, ba, sf, words.reshape(-1, n_words),
+            return synthesize(cfg, ba, sf, words.reshape(-1, width),
                               overall, lrms, dev)
 
         k0 = self._blk_idx

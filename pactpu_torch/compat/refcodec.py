@@ -668,7 +668,9 @@ def encode_block(full_block: np.ndarray, cfg: CodecConfig,
         line_bits_list = []
         for b in range(layout.n_bands):
             lo, hi = layout.lower_line[b], layout.upper_line[b] + 1
-            peak = float(np.max(np.abs(mixed[c][lo:hi])))
+            # a band of no lines (22.05 kHz: the last two) peaks at 0, as
+            # the port's and pactpu's band maxima read it
+            peak = float(np.max(np.abs(mixed[c][lo:hi]), initial=0.0))
             sf[b] = scale_factor_scalar(peak, cfg.n_scale_bits,
                                         int(alloc[b]))
             if alloc[b]:
